@@ -1,0 +1,128 @@
+"""The port stands alone: ``tpucfn_torch`` and ``chip_smoke.py`` import
+nothing of JAX or of the JAX package, import cleanly where JAX cannot be
+imported at all, run on the card unless told otherwise, and keep their
+copies of the JAX package's jax-free modules equal to the originals."""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "tpucfn_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpucfn")
+
+# (copy in the port, original in the JAX package)
+VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
+            ("serve/scheduler.py", "serve/scheduler.py"),
+            ("serve/frontend.py", "serve/frontend.py"),
+            ("obs/registry.py", "obs/registry.py"),
+            ("obs/trace.py", "obs/trace.py")]
+METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_jax_package_import(path):
+    bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_unimportable():
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, sys
+        BLOCKED = {FORBIDDEN!r}
+        for name in list(sys.modules):
+            if name.split(".")[0] in BLOCKED:
+                del sys.modules[name]
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import tpucfn_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            tpucfn_torch.__path__, "tpucfn_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15
+
+
+def test_entry_points_default_to_the_card():
+    """With no device argument the engine and the demo raise on a machine
+    without a card, rather than quietly serving from the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    from tpucfn_torch.models.llama import Llama, LlamaConfig
+    from tpucfn_torch.serve.engine import ServeEngine, demo_llama_engine
+
+    cfg = LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo_llama_engine("nano")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(Llama(cfg, decode=True), max_batch=1, cache_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine.from_llama(cfg, {}, max_batch=1)
+    from tpucfn_torch.cli import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--preset", "nano", "--synthetic", "1"])
+
+
+def _without_imports(src: str) -> list[str]:
+    """Source lines minus every import statement (all its lines)."""
+    drop = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            drop.update(range(node.lineno, node.end_lineno + 1))
+    return [line for i, line in enumerate(src.splitlines(), 1)
+            if i not in drop]
+
+
+@pytest.mark.parametrize("copy,original", VERBATIM, ids=[c for c, _ in VERBATIM])
+def test_copied_module_equals_original_but_imports(copy, original):
+    ported = (PORT / copy).read_text()
+    orig = (REPO / "tpucfn" / original).read_text()
+    assert _without_imports(ported) == _without_imports(orig)
+
+
+def _definitions(src: str) -> dict[str, str]:
+    lines = src.splitlines()
+    return {node.name: "\n".join(lines[node.lineno - 1:node.end_lineno])
+            for node in ast.parse(src).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("name", METRICS_DEFS)
+def test_copied_metrics_definitions_equal_originals(name):
+    ported = _definitions((PORT / "obs/metrics.py").read_text())
+    orig = _definitions((REPO / "tpucfn/obs/metrics.py").read_text())
+    assert ported[name] == orig[name]
+    assert set(ported) == set(METRICS_DEFS)

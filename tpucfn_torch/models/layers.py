@@ -1,0 +1,158 @@
+"""Shared transformer building blocks (the port of
+``tpucfn/models/layers.py``).
+
+Module and parameter names follow the JAX package (q_proj/k_proj/v_proj/
+o_proj, gate_proj/up_proj/down_proj, ``scale`` of the norms), so the
+weight converter (:mod:`tpucfn_torch.models.convert`) maps name to name.
+
+Mixed precision as in the JAX package: activations in the compute dtype
+(bf16 for the Llama presets), norms and RoPE in fp32.  The JAX package
+keeps fp32 params and casts each matmul weight to the compute dtype on
+every call; the port stores the matmul weights in the compute dtype
+once, at load — the same rounding, done once.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpucfn_torch.ops.attention import dot_product_attention
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        norm = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (norm * self.scale).to(self.dtype)
+
+
+def rope_frequencies(dim: int, max_pos: int, theta: float,
+                     device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Precompute RoPE cos/sin tables: (max_pos, dim//2), fp32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=device) / dim))
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,) global token positions.
+    The half-split (NeoX) form: the first and second halves of D rotate
+    as pairs."""
+    c = cos[positions]  # (..., S, D/2)
+    s = sin[positions]
+    if c.ndim == 2:  # (S, D/2) -> broadcast batch
+        c, s = c[None], s[None]
+    c, s = c[:, :, None, :], s[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# attention_fn(q, k, v, causal=..., q_offset=..., k_offset=...) -> out
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
+    return nn.Linear(n_in, n_out, bias=False, dtype=dtype, device=device)
+
+
+class CausalSelfAttention(nn.Module):
+    """GQA self-attention with RoPE; the attention inner op is pluggable.
+
+    ``decode=True`` turns on the autoregressive KV cache: each call writes
+    this step's K/V into the caller's cache tensors at each row's
+    ``cache_index`` (in place) and attends over the whole prefix.  The
+    caller advances the index.  The RoPE tables span ``max_seq``."""
+
+    def __init__(self, dim: int, n_heads: int, n_kv_heads: int, head_dim: int,
+                 *, rope_theta: float = 500000.0, max_seq: int = 8192,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attention_fn: AttentionFn = dot_product_attention,
+                 decode: bool = False, device=None):
+        super().__init__()
+        self.n_heads, self.n_kv_heads, self.head_dim = n_heads, n_kv_heads, head_dim
+        self.rope_theta, self.max_seq, self.dtype = rope_theta, max_seq, dtype
+        self.attention_fn = attention_fn
+        self.decode = decode
+        self.q_proj = _linear(dim, n_heads * head_dim, dtype, device)
+        self.k_proj = _linear(dim, n_kv_heads * head_dim, dtype, device)
+        self.v_proj = _linear(dim, n_kv_heads * head_dim, dtype, device)
+        self.o_proj = _linear(n_heads * head_dim, dim, dtype, device)
+
+    def forward(self, x: torch.Tensor, *, positions=None, q_offset=0,
+                rope=None, kv_cache=None, cache_index=None) -> torch.Tensor:
+        """``rope``: precomputed (cos, sin) tables (computed here when
+        None).  Decode mode needs ``kv_cache`` = (keys, values), each
+        (B, capacity, Hkv, D), and ``cache_index`` (B,) int32."""
+        b, s, _ = x.shape
+        q = self.q_proj(x).reshape(b, s, self.n_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        cos, sin = rope if rope is not None else rope_frequencies(
+            self.head_dim, self.max_seq, self.rope_theta, device=x.device)
+
+        if self.decode:
+            if positions is not None:
+                raise ValueError(
+                    "decode mode derives positions from the KV cache index; "
+                    "explicit positions are not supported together with decode"
+                )
+            keys, values = kv_cache
+            i = cache_index.long()
+            steps = torch.arange(s, device=x.device)
+            # Out-of-range positions clamp, as JAX's gather does; those
+            # rows are poisoned below.
+            pos = (i[:, None] + steps).clamp(0, self.max_seq - 1)
+            q = apply_rope(q, cos, sin, pos)
+            k = apply_rope(k, cos, sin, pos)
+            # The write clamps so it fits, as dynamic_update_slice does.
+            start = i.clamp(0, keys.shape[1] - s)
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = start[:, None] + steps
+            keys[rows, cols] = k.to(keys.dtype)
+            values[rows, cols] = v.to(values.dtype)
+            # q lives at global positions [i, i+s); cache slots beyond are
+            # dead and masked out by causality.
+            out = self.attention_fn(q, keys, values, causal=True,
+                                    q_offset=cache_index, k_offset=0)
+            # Past-capacity decoding would silently clamp the RoPE gather
+            # and the cache write; poison the output instead so overflow is
+            # loud (NaNs) rather than quietly wrong.
+            fits = (i + s <= self.max_seq)[:, None, None, None]
+            out = torch.where(fits, out, torch.nan)
+        else:
+            if positions is None:
+                positions = torch.arange(s, device=x.device) + q_offset
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            out = self.attention_fn(q, k, v, causal=True,
+                                    q_offset=q_offset, k_offset=q_offset)
+        out = out.reshape(b, s, self.n_heads * self.head_dim)
+        return self.o_proj(out)
+
+
+class SwiGLUMLP(nn.Module):
+    def __init__(self, dim: int, ffn_dim: int,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.gate_proj = _linear(dim, ffn_dim, dtype, device)
+        self.up_proj = _linear(dim, ffn_dim, dtype, device)
+        self.down_proj = _linear(ffn_dim, dim, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

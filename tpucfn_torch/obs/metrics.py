@@ -1,0 +1,138 @@
+"""Metric instruments for the serving plane: ``nearest_rank``,
+:class:`Counter`, :class:`Gauge`, :class:`ComputedGauge` and
+:class:`Summary`.
+
+Copied definition for definition from ``tpucfn/obs/metrics.py`` (the
+port imports nothing of the JAX package); a drift test holds each
+definition equal to its original.  The device gauges, the step timer
+and the JSONL logger are not part of the serving path and are not
+copied.
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+def nearest_rank(xs_sorted: list, p: float):
+    """Nearest-rank percentile over an already-sorted sample list (None
+    when empty) — the one formula Summary, and the fleet aggregator in
+    ``obs.aggregate``, must agree on."""
+    if not xs_sorted:
+        return None
+    last = len(xs_sorted) - 1
+    return xs_sorted[min(last, max(0, round(p / 100.0 * last)))]
+
+
+class Counter:
+    """Monotonic, thread-safe counter (requests served, tokens emitted,
+    rejections...).  Serving-side instrumentation shares the training
+    stack's metrics vocabulary so one JSONL/snapshot pipeline carries
+    both (SURVEY.md §5 metrics row)."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def add(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (queue depth, cache
+    occupancy).  Thread-safe by virtue of atomic float assignment; the
+    lock-free write is deliberate — gauges are sampled, not summed."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+
+class ComputedGauge(Gauge):
+    """Gauge whose value is computed at read time by a callback.
+
+    For series that must reflect live state as of the scrape instant —
+    a rolling-window burn rate frozen at the last write would keep an
+    alert firing on dead traffic forever.  Registered via
+    ``MetricRegistry.computed_gauge``; exposition treats it exactly
+    like a :class:`Gauge`."""
+
+    def __init__(self, name: str = "", fn=lambda: 0.0):
+        self._fn = fn
+        super().__init__(name)
+        self._init_done = True
+
+    @property
+    def value(self) -> float:
+        return float(self._fn())
+
+    @value.setter
+    def value(self, v):
+        # Gauge.__init__ assigns 0.0 — tolerated; afterwards a write is
+        # a name collision (someone fetched this via registry.gauge()
+        # and called set()) and must NOT vanish silently.
+        if getattr(self, "_init_done", False):
+            raise AttributeError(
+                f"gauge {self.name!r} is computed at read time; set() "
+                "writes would be silently shadowed — it is registered "
+                "via computed_gauge() elsewhere")
+
+
+class Summary:
+    """Streaming distribution (TTFT, per-request latency): count/sum
+    always exact; percentiles over a bounded reservoir of the most
+    recent ``keep`` samples — serving runs are long, memory must not
+    grow with request count."""
+
+    def __init__(self, name: str = "", keep: int = 4096):
+        self.name = name
+        self.count = 0
+        self.sum = 0.0
+        self._keep = keep
+        self._recent: list[float] = []
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            self._recent.append(float(v))
+            if len(self._recent) > self._keep:
+                del self._recent[: len(self._recent) - self._keep]
+
+    def read(self) -> tuple[int, float, list[float]]:
+        """``(count, sum, sorted reservoir)`` under ONE lock acquisition
+        — exposition must not pair a count with a sum from a different
+        moment (rate(x_sum)/rate(x_count) assumes they move together)."""
+        with self._lock:
+            return self.count, self.sum, sorted(self._recent)
+
+    def percentiles(self, ps: tuple[float, ...]) -> dict[float, float | None]:
+        """All requested percentiles from ONE sorted copy taken under ONE
+        lock acquisition — a snapshot is three percentiles, and sorting
+        the reservoir per percentile (re-taking the lock each time) both
+        triples the work and lets samples land between reads."""
+        _, _, xs = self.read()
+        return {p: nearest_rank(xs, p) for p in ps}
+
+    def percentile(self, p: float) -> float | None:
+        return self.percentiles((p,))[p]
+
+    @property
+    def mean(self) -> float | None:
+        return self.sum / self.count if self.count else None
+
+    def snapshot(self) -> dict:
+        count, total, xs = self.read()
+        return {"count": count, "mean": (total / count if count else None),
+                "p50": nearest_rank(xs, 50), "p95": nearest_rank(xs, 95),
+                "p99": nearest_rank(xs, 99)}
