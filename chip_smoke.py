@@ -7,23 +7,48 @@ Phases, each printed as one JSON line:
 
 1. ``device``: the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-   gives them (also printed raw on a line of its own).
-2. ``build``: compiles every kernel of the serving path from
-   ``tpucfn_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``.
-3. ``kernel``: the flash forward kernel against its plain PyTorch version
-   on the same inputs, at the serving path's shapes (llama3-1b decode
-   and prefill) and at the edge cases (fp32/D=16/GQA, empty rows,
+   gives them (also printed raw on a line of its own, here and again
+   just before the ``{"kernels": ...}`` line).
+2. ``build``: compiles every kernel source of the serving and training
+   paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu`` and
+   ``flash_bwd.cu``) with ``nvcc`` for ``sm_90a``, one process per source,
+   all started together.
+3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
+   version on the same inputs, at the serving path's shapes (llama3-1b
+   decode and prefill), the training path's (2 x 2048, causal) and at
+   the edge cases (fp32/D=16/GQA, empty rows,
    segment ids, non-causal); error, tolerance, times of the kernel, the
    plain version and one PyTorch library call
-   (``scaled_dot_product_attention`` with a boolean mask: a yardstick
-   only, never called by the port), and the roofline bound.
-4. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
+   (``scaled_dot_product_attention`` with a boolean mask, or
+   ``is_causal`` for a plain causal square case: a yardstick only, never
+   called by the port), and the roofline bound.
+4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV)
+   — against the plain backward on the same inputs, at the training
+   shape (llama3-1b, B=2, S=2048, bf16) and the edge cases (fp32 D=16 GQA
+   2, fp32 D=128 with a query offset, segment ids, a nonzero dLSE, empty
+   rows, non-causal ragged lengths); error beside its tolerance, kernel,
+   bound, plain and library ms (the library yardstick is the backward of
+   one ``scaled_dot_product_attention`` call for K2 and K3, and one
+   ``torch.linalg.vecdot`` for Delta); an empty call counts no launch.
+5. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
    full width and depth of llama3-1b (random weights from a seed) answers
    8 requests; every request completes, no KV block leaks, the kernel ran
    on every layer of every prefill and decode call, and teacher-forced
    logits agree with the plain attention path.
-5. ``serve_tiny_fp32``: the tiny preset in fp32; the engine's greedy
+6. ``serve_tiny_fp32``: the tiny preset in fp32; the engine's greedy
    tokens (kernel) equal ``generate``'s (plain attention).
+7. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
+   bf16 compute, full remat, chunked CE with z-loss, the example's
+   clip + AdamW + warmup-cosine chain) takes 4 steps on a fixed
+   ``synthetic_tokens`` batch of 2 x 2048 at the full width and depth of
+   llama3-1b (random weights from seed 0): finite losses, the last below
+   the first, and per step exactly 32 K1 launches (forward and remat
+   recompute), 16 K2, 16 K3 and 16 Delta; then loss and every gradient
+   against the plain attention path (loss within a tolerance, cosine
+   >= 0.99), step time, tokens/s, peak memory, model flops over the
+   bf16 peak, and a profiled step.
+8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
+   kernels against the plain path: losses equal to fp32 sum order.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero before that line.  Without a
@@ -35,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,7 +68,9 @@ import traceback
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernel", "serve_llama3_1b", "serve_tiny_fp32")
+PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
+          "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
+SOURCES = ("flash_fwd", "flash_bwd")  # tpucfn_torch/kernels/csrc/<name>.cu
 
 # NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -84,7 +112,7 @@ class Phase:
 
 
 # ---- phase 1 ---------------------------------------------------------------
-def phase_device():
+def phase_device(results):
     import torch
 
     smi = subprocess.run(
@@ -92,6 +120,7 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    results["card"] = smi[0] if smi else None
     return {"name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi[0] if smi else None,
             "count": torch.cuda.device_count(),
@@ -102,12 +131,12 @@ def phase_device():
 def phase_build():
     from tpucfn_torch.kernels import _build
 
-    logs = _build.build("flash_fwd")
+    logs = _build.build(*SOURCES)  # one nvcc per source, all at once
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
-    _build.load("flash_fwd")
-    return {"built": sorted(logs), "library": str(
-        _build.library_path("flash_fwd").relative_to(HERE))}
+    return {"built": sorted(logs), "libraries": [
+        str(_build.library_path(name).relative_to(HERE))
+        for name in SOURCES if _build.load(name)]}
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -139,8 +168,8 @@ class Timer:
 
 
 def _kernel_cases(torch):
-    """(label, kwargs for the inputs) at the serving path's shapes and the
-    edge cases."""
+    """(label, kwargs for the inputs) at the serving and training paths'
+    shapes and the edge cases."""
     bf, f32 = torch.bfloat16, torch.float32
     sk = 2048  # llama3-1b serving cache_len
     decode_off = [int(x) for x in torch.linspace(0, sk - 1, 8)]
@@ -150,6 +179,8 @@ def _kernel_cases(torch):
         cases.append((f"prefill_llama3_1b_sq{sq}",
                       dict(b=4, h=32, hkv=8, d=64, sq=sq, sk=sk, dtype=bf,
                            q_offset=[0, 0, 300, sk - sq])))
+    cases.append(("train_llama3_1b", dict(b=2, h=32, hkv=8, d=64, sq=sk,
+                                          sk=sk, dtype=bf, q_offset=[0, 0])))
     cases += [
         ("tiny_fp32_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64,
                                     dtype=f32, q_offset=[0, 0])),
@@ -217,14 +248,18 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     ok = err_o <= tol["o"] and err_lse <= tol["lse"] and finite and empty_ok
 
     # Library yardstick: SDPA over (B, H, S, D), KV heads repeated and the
-    # mask built beforehand (outside the timed call).
+    # mask built beforehand (outside the timed call); a plain causal square
+    # case passes is_causal instead, which lets SDPA take its flash backend.
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kt = kt.repeat_interleave(h // hkv, dim=1)
     vt = vt.repeat_interleave(h // hkv, dim=1)
-    lib_mask = live[:, None]
+    plain_causal = causal and not segments and k_offset == 0 \
+        and not any(q_offset) and sq == sk
+    lib_mask = None if plain_causal else live[:, None]
 
     def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lib_mask, is_causal=plain_causal)
 
     ms = timer(kernel)
     plain_ms = timer(plain)
@@ -271,7 +306,199 @@ def phase_kernel(results):
             "worst_max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-# ---- phases 4 and 5 ----------------------------------------------------------
+# ---- phase 4: the backward kernels -----------------------------------------
+# K2, K3 and Delta against their plain versions on the same inputs (each
+# kernel gets the inputs its plain version gets: Delta (o, dO); K2 and K3
+# (q, k, v, dO, lse, Delta[, dLSE])).  All compute in fp32 and differ in
+# sum order; bf16 outputs are then rounded once, so a bf16 result may sit
+# one ulp (2^-8 relative) off.  Tolerances, as a fraction of the largest
+# |reference| value of each tensor (dK and dV each against their own):
+BWD_REL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+
+
+def _bwd_cases(torch):
+    """(label, kwargs) at the training path's shape and the edge cases."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("train_llama3_1b", dict(b=2, h=32, hkv=8, d=64, sq=2048, sk=2048,
+                                 dtype=bf)),
+        ("fp32_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64,
+                               dtype=f32)),
+        ("fp32_d128_q_offset", dict(b=2, h=8, hkv=4, d=128, sq=96, sk=160,
+                                    dtype=f32, q_offset=64)),
+        ("segment_ids", dict(b=2, h=8, hkv=2, d=64, sq=256, sk=256, dtype=bf,
+                             segments=True)),
+        ("dlse_fp32", dict(b=2, h=8, hkv=2, d=64, sq=128, sk=128, dtype=f32,
+                           dlse=True)),
+        ("empty_rows_k_offset", dict(b=2, h=4, hkv=4, d=64, sq=128, sk=128,
+                                     dtype=bf, k_offset=40)),
+        ("non_causal_ragged_d128", dict(b=2, h=8, hkv=8, d=128, sq=200,
+                                        sk=300, dtype=bf, causal=False)),
+    ]
+
+
+def _err_row(pairs, dtype, ms, plain_ms, library_ms, bytes_, flops):
+    """``pairs``: tensor name -> (kernel's, reference); each tensor is
+    held to its own tolerance.  ``max_abs_err`` is the worst of them."""
+    tensors = {}
+    for name, (got, ref) in pairs.items():
+        ref = ref.float()
+        scale = ref.abs().max().item()
+        tensors[name] = {
+            "max_abs_err": (got.float() - ref).abs().max().item(),
+            "tol": BWD_REL_TOL[str(dtype)] * max(scale, 1e-6),
+            "ref_max_abs": scale, "finite": bool(got.isfinite().all())}
+    ok = all(t["finite"] and t["max_abs_err"] <= t["tol"]
+             for t in tensors.values())
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return {"ok": ok, "max_abs_err": max(t["max_abs_err"]
+                                         for t in tensors.values()),
+            "tensors": tensors, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": bytes_, "flops": flops}
+
+
+def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
+              k_offset=0, causal=True, segments=False, dlse=False):
+    import torch.nn.functional as F
+
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(len(label))
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+    dl = (torch.randn(b, h, sq, generator=g, device="cuda") if dlse
+          else None)
+    q_seg = kv_seg = None
+    if segments:
+        q_seg = (torch.arange(sq, device="cuda") // 48).int()[None].expand(b, sq).contiguous()
+        kv_seg = (torch.arange(sk, device="cuda") // 48).int()[None].expand(b, sk).contiguous()
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                          k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg)
+    kw = dict(dlse=dl, causal=causal, q_offset=q_offset, k_offset=k_offset,
+              q_seg=q_seg, kv_seg=kv_seg)
+    delta = fa.flash_bwd_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    ref_delta = fa.flash_bwd_delta_plain(o, do)
+    ref = fa.flash_bwd_plain_from_delta(q, k, v, lse, delta, do, **kw)
+
+    # Live (query, key) pairs of these inputs: the work the kernels need.
+    qpos = torch.arange(sq, device="cuda") + q_offset
+    kpos = torch.arange(sk, device="cuda") + k_offset
+    live = torch.ones(b, sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        live &= (qpos[:, None] >= kpos[None, :])[None]
+    if segments:
+        live &= q_seg[:, :, None] == kv_seg[:, None, :]
+    pairs = h * int(live.sum())  # per query head
+    esize = torch.finfo(dtype).bits // 8
+    n_q, n_kv, rows = q.numel() * esize, k.numel() * esize, b * h * sq * 4
+    seg_bytes = b * (sq + sk) * 4 if segments else 0
+    dl_bytes = rows if dlse else 0
+    iters = 10 if sq * sk > 1 << 20 else 30
+
+    # Library yardstick: the backward of one scaled_dot_product_attention
+    # call (forward outside the timing), KV heads repeated, the mask built
+    # beforehand; it computes dq, dk and dv together.
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kt = kt.repeat_interleave(h // hkv, dim=1)
+    vt = vt.repeat_interleave(h // hkv, dim=1)
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    plain_causal = causal and not segments and q_offset == k_offset == 0 \
+        and sq == sk
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=plain_causal,
+        attn_mask=None if plain_causal else live[:, None])
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    library_ms = timer(library, iters=iters)
+    plain_ms = timer(lambda: fa.flash_bwd_plain_from_delta(
+        q, k, v, lse, delta, do, **kw), iters=iters)
+    rows_out = {
+        # Delta's yardstick is one vecdot over (B, Sq, H): it rounds its
+        # output to the inputs' dtype, where Delta keeps fp32.
+        "delta": _err_row(
+            {"delta": (delta, ref_delta)}, torch.float32,
+            timer(lambda: fa.flash_bwd_delta(o, do), iters=iters),
+            timer(lambda: fa.flash_bwd_delta_plain(o, do), iters=iters),
+            timer(lambda: torch.linalg.vecdot(do, o), iters=iters),
+            2 * n_q + rows, 2 * d * b * h * sq),
+        "dq": _err_row(
+            {"dq": (dq, ref[0])}, dtype,
+            timer(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                  iters=iters), plain_ms, library_ms,
+            3 * n_q + 2 * n_kv + 2 * rows + dl_bytes + seg_bytes,
+            2 * 3 * d * pairs),
+        "dkv": _err_row(
+            {"dk": (dk, ref[1]), "dv": (dv, ref[2])}, dtype,
+            timer(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                  iters=iters), plain_ms, library_ms,
+            2 * n_q + 4 * n_kv + 2 * rows + dl_bytes + seg_bytes,
+            2 * 4 * d * pairs),
+    }
+    return {"case": label, "shape": dict(
+        b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk, dtype=str(dtype), causal=causal,
+        q_offset=q_offset, k_offset=k_offset, segments=segments, dlse=dlse),
+        "ok": all(r["ok"] for r in rows_out.values()),
+        "empty_rows": int((~live.any(-1)).sum()), **rows_out}
+
+
+def _empty_calls_count_nothing(torch, fa):
+    """A call on empty inputs returns zero-filled outputs without a launch,
+    so no wrapper counts it."""
+    wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    q = torch.empty(1, 0, 4, 64, dtype=torch.bfloat16, device="cuda")
+    kv = torch.randn(1, 16, 2, 64, device="cuda").to(torch.bfloat16)
+    rows = torch.empty(1, 4, 0, device="cuda")
+    fa.flash_fwd(q, kv, kv)
+    fa.flash_bwd_delta(q, q)
+    fa.flash_bwd_dq(q, kv, kv, q, rows, rows)
+    dk, dv = fa.flash_bwd_dkv(q, kv, kv, q, rows, rows)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before, "an empty call counted"
+    assert not dk.any() and not dv.any(), "dK/dV of no queries must be 0"
+
+
+def phase_kernel_bwd(results):
+    import torch
+
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    timer = Timer(torch)
+    counters = (fa.flash_bwd_delta, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [c.launches for c in counters]
+    rows = []
+    for label, kw in _bwd_cases(torch):
+        row = _bwd_case(torch, timer, label, **kw)
+        emit({"kernel_bwd_case": row})
+        rows.append(row)
+        torch.cuda.empty_cache()
+    results["kernel_bwd_rows"] = rows
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"backward kernels disagree with the plain "
+                             f"backward: {bad}")
+    if any(c.launches == n for c, n in zip(counters, before)):
+        raise AssertionError("the comparisons never launched a kernel")
+    _empty_calls_count_nothing(torch, fa)
+    return {"cases": len(rows), "worst_max_abs_err": {
+        k: max(r[k]["max_abs_err"] for r in rows)
+        for k in ("delta", "dq", "dkv")}}
+
+
+# ---- phases 5 and 6: serving -------------------------------------------------
 def _instrument(engine, counts):
     """Count and time the engine's prefill and decode calls (each ends in a
     device->host copy of the sampled tokens, so host time is complete)."""
@@ -314,10 +541,13 @@ def _profile(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # Device rows that are kernels, not user annotations (an annotation
+    # such as "Optimizer.step#AdamW.step" spans the kernels it encloses).
     kernels = [r for r in prof.key_averages()
-               if r.device_type == DeviceType.CUDA]
+               if r.device_type == DeviceType.CUDA
+               and not getattr(r, "is_user_annotation", False)]
     device_ms = sum(r.self_device_time_total for r in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:12]
     return {"wall_ms": wall_ms,
             "device_ms": device_ms if kernels else "not measured",
             "device_busy_share": device_ms / wall_ms if kernels else None,
@@ -444,23 +674,229 @@ def phase_serve_tiny_fp32(results):
     return {"requests": len(reqs), "identical": True}
 
 
+# ---- phases 7 and 8: training ------------------------------------------------
+# Loss of the kernel path against the plain attention path at the same
+# params and batch (llama3-1b, bf16): the plain forward rounds P to bf16
+# before PV (as the JAX dense op does) and K1 keeps it fp32, carried
+# through 16 layers; gradients are held to a cosine similarity instead.
+TRAIN_LOSS_TOL_BF16 = 0.02
+GRAD_COSINE_MIN = 0.99
+# tiny fp32, kernel path against plain path over a few AdamW steps: fp32
+# sum order only, slightly amplified by the steps.
+TINY_LOSS_TOL_FP32 = 1e-4
+LAUNCHES_PER_LAYER = {"k1": 2, "k2": 1, "k3": 1, "delta": 1}  # full remat
+
+
+def _launch_counts():
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    return {"k1": fa.flash_fwd.launches, "k2": fa.flash_bwd_dq.launches,
+            "k3": fa.flash_bwd_dkv.launches,
+            "delta": fa.flash_bwd_delta.launches}
+
+
+def _zero_launch_counts():
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+              fa.flash_bwd_delta):
+        f.launches = 0
+
+
+def _example_chain(total_steps):
+    """The optimizer chain of examples/llama3_8b_fsdp.py."""
+    from tpucfn_torch.train import (adamw, chain, clip_by_global_norm,
+                                    warmup_cosine_decay_schedule)
+
+    warmup = max(1, min(100, total_steps // 10))
+    return chain(clip_by_global_norm(1.0), adamw(
+        warmup_cosine_decay_schedule(0.0, 3e-4, warmup, total_steps),
+        b1=0.9, b2=0.95, weight_decay=0.1))
+
+
+def _token_batch(torch, n, seq_len, vocab):
+    import numpy as np
+
+    from tpucfn_torch.data import synthetic_tokens
+
+    tokens = np.stack([x["tokens"] for x in synthetic_tokens(
+        n, seq_len=seq_len, vocab=vocab, seed=0)])
+    return {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+
+def _grad_parity(torch, cfg, params, batch, chunk_size, z_loss):
+    """Loss and every parameter's gradient through the kernels and through
+    the plain attention op, at the same params and batch."""
+    from tpucfn_torch.ops.attention import dot_product_attention
+    from tpucfn_torch.train import llama_train_fns
+
+    names = list(params)
+    out = []
+    for attention_fn in (None, dot_product_attention):
+        _, loss_fn = llama_train_fns(cfg, attention_fn=attention_fn,
+                                     chunk_size=chunk_size, z_loss=z_loss)
+        loss, _ = loss_fn(params, {}, batch, None)
+        out.append((loss.item(), torch.autograd.grad(
+            loss, [params[n] for n in names])))
+    (k_loss, k_grads), (p_loss, p_grads) = out
+    cosines = {}
+    for n, a, b in zip(names, k_grads, p_grads):
+        a, b = a.double().flatten(), b.double().flatten()
+        den = a.norm() * b.norm()
+        cosines[n] = 1.0 if den == 0 else float(a @ b / den)
+    worst = min(cosines, key=cosines.get)
+    return {"kernel_loss": k_loss, "plain_loss": p_loss,
+            "loss_abs_diff": abs(k_loss - p_loss),
+            "loss_tol": TRAIN_LOSS_TOL_BF16,
+            "grad_cosine_min": cosines[worst], "grad_cosine_min_at": worst,
+            "grad_cosine_tol": GRAD_COSINE_MIN, "tensors": len(cosines)}
+
+
+def phase_train_llama3_1b(results):
+    import dataclasses
+
+    import torch
+
+    from tpucfn_torch.models.llama import LlamaConfig
+    from tpucfn_torch.train import Trainer, llama_train_fns
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_1b(),
+                              param_dtype=torch.float32, remat=True)
+    assert (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.ffn_dim, cfg.vocab_size) == \
+        (2048, 16, 32, 8, 64, 8192, 128256), cfg
+    steps, b, seq, chunk, z_loss = 4, 2, 2048, 512, 1e-4
+    init_fn, loss_fn = llama_train_fns(cfg, chunk_size=chunk, z_loss=z_loss)
+    trainer = Trainer(None, None, loss_fn, _example_chain(steps), init_fn,
+                      device="cuda")
+    state = trainer.init(0)
+    batch = _token_batch(torch, b, seq, cfg.vocab_size)
+    n_params = sum(p.numel() for p in state.params.values())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, step_s, per_step, seen = [], [], [], _launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        now = _launch_counts()
+        per_step.append({k: now[k] - seen[k] for k in now})
+        seen = now
+    results["train_launches"] = seen
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
+    assert all(c == expected for c in per_step), (per_step, expected)
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0], losses
+
+    steady = sum(step_s[1:]) / (steps - 1)
+    tokens = b * seq
+    matmul_params = n_params - cfg.vocab_size * cfg.dim \
+        - (2 * cfg.n_layers + 1) * cfg.dim  # no embedding lookup, no norms
+    attn_flops = (3 * 4 * cfg.head_dim * cfg.n_heads * b
+                  * seq * (seq + 1) // 2 * cfg.n_layers)
+    model_flops = 6 * matmul_params * tokens + attn_flops
+    profile = _profile(torch, lambda: trainer.step(state, batch), 1)
+    parity = _grad_parity(torch, cfg, state.params, batch, chunk, z_loss)
+    assert parity["loss_abs_diff"] <= TRAIN_LOSS_TOL_BF16, parity
+    assert parity["grad_cosine_min"] >= GRAD_COSINE_MIN, parity
+    return {"card": results.get("card"), "params": n_params,
+            "batch": [b, seq], "losses": losses,
+            "launches_per_step": per_step[-1],
+            "launches_expected_per_step": expected,
+            "step_ms": [t * 1e3 for t in step_s],
+            "step_ms_steady_mean": steady * 1e3,
+            "tokens_per_s": tokens / steady,
+            "model_flops_per_step": model_flops,
+            "mfu_vs_989_tflops": model_flops / steady / 989e12,
+            "peak_mem_gib": peak_gib, "profile_step": profile,
+            "parity_after_steps": parity}
+
+
+def phase_train_tiny_fp32(results):
+    import dataclasses
+
+    import torch
+
+    from tpucfn_torch.models.llama import LlamaConfig
+    from tpucfn_torch.ops.attention import dot_product_attention
+    from tpucfn_torch.train import Trainer, adamw, llama_train_fns
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), param_dtype=torch.float32)
+    assert cfg.dtype == torch.float32
+    batch = _token_batch(torch, 8, 64, cfg.vocab_size)
+    runs = {}
+    for name, attention_fn in (("kernel", None),
+                               ("plain", dot_product_attention)):
+        init_fn, loss_fn = llama_train_fns(cfg, attention_fn=attention_fn,
+                                           chunk_size=16)
+        trainer = Trainer(None, None, loss_fn, adamw(1e-3), init_fn,
+                          device="cuda")
+        state = trainer.init(0)
+        _zero_launch_counts()
+        losses = []
+        for _ in range(6):
+            state, metrics = trainer.step(state, batch)
+            losses.append(metrics["loss"].item())
+        runs[name] = (losses, _launch_counts())
+    (k_losses, k_counts), (p_losses, p_counts) = runs["kernel"], runs["plain"]
+    diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
+    assert all(k_counts[k] == 6 * n * cfg.n_layers
+               for k, n in LAUNCHES_PER_LAYER.items()), k_counts
+    assert not any(p_counts.values()), p_counts
+    assert k_losses[-1] < k_losses[0], k_losses
+    return {"kernel_losses": k_losses, "plain_losses": p_losses,
+            "loss_max_abs_diff": diff, "loss_tol": TINY_LOSS_TOL_FP32,
+            "kernel_launches": k_counts}
+
+
+KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "max_abs_err")
+
+
 def _kernels_line(results):
-    rows = results.get("kernel_rows", [])
+    """One entry per kernel: launches counted on the main paths (serving
+    and training, each counted from 0 on its own), times at the main
+    path's shape, the worst error over every compared shape."""
+    rows = results["kernel_rows"]
     main = next(r for r in rows if r["case"] == "decode_llama3_1b")
-    return {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
+    train = results["train_launches"]
+    k1_paths = {"serve_llama3_1b": results["main_path_launches"],
+                "train_llama3_1b": train["k1"]}
+    kernels = [{
+        "name": "flash_fwd", "route": "cuda",
         "source": "tpucfn_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "tpucfn/kernels/flash_attention.py:98",
-        "launches": results["main_path_launches"],
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+        **{k: main[k] for k in KEYS},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
         "at": main["case"],
-        "shapes": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by", "max_abs_err")}
-                   for r in rows]}]}
+        "shapes": [{"case": r["case"], **{k: r[k] for k in KEYS}}
+                   for r in rows]}]
+    bwd = results["kernel_bwd_rows"]
+    at = next(r for r in bwd if r["case"] == "train_llama3_1b")
+    for name, key, count, line in (
+            ("flash_bwd_delta", "delta", "delta", 393),
+            ("flash_bwd_dq", "dq", "k2", 248),
+            ("flash_bwd_dkv", "dkv", "k3", 308)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpucfn_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": f"tpucfn/kernels/flash_attention.py:{line}",
+            "launches": train[count],
+            "launches_by_path": {"train_llama3_1b": train[count]},
+            **{k: at[key][k] for k in KEYS},
+            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd),
+            "at": at["case"],
+            "shapes": [{"case": r["case"], **{k: r[key][k] for k in KEYS}}
+                       for r in bwd]})
+    return {"kernels": kernels}
 
 
 def main(argv=None) -> int:
@@ -485,10 +921,14 @@ def main(argv=None) -> int:
 
     results: dict = {}
     phase = Phase()
-    fns = {"device": lambda: phase_device(), "build": lambda: phase_build(),
+    fns = {"device": lambda: phase_device(results),
+           "build": lambda: phase_build(),
            "kernel": lambda: phase_kernel(results),
+           "kernel_bwd": lambda: phase_kernel_bwd(results),
            "serve_llama3_1b": lambda: phase_serve_llama3_1b(results),
-           "serve_tiny_fp32": lambda: phase_serve_tiny_fp32(results)}
+           "serve_tiny_fp32": lambda: phase_serve_tiny_fp32(results),
+           "train_llama3_1b": lambda: phase_train_llama3_1b(results),
+           "train_tiny_fp32": lambda: phase_train_tiny_fp32(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:
@@ -496,6 +936,9 @@ def main(argv=None) -> int:
     if set(wanted) != set(PHASES):
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 2
+    # The card's name and power limit again, near the end of the output,
+    # where a reader that keeps only the tail still finds it.
+    print(results["card"] or "nvidia-smi: no output", flush=True)
     emit(_kernels_line(results))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

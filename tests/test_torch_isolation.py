@@ -23,6 +23,10 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("obs/registry.py", "obs/registry.py"),
             ("obs/trace.py", "obs/trace.py")]
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
+# (copy in the port, original in the JAX package, definition) where the
+# port keeps one function of a module that it otherwise rewrites
+COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
+               ("data/packing.py", "data/packing.py", "pack_sequences")]
 
 
 def _port_files():
@@ -126,3 +130,11 @@ def test_copied_metrics_definitions_equal_originals(name):
     orig = _definitions((REPO / "tpucfn/obs/metrics.py").read_text())
     assert ported[name] == orig[name]
     assert set(ported) == set(METRICS_DEFS)
+
+
+@pytest.mark.parametrize("copy,original,name", COPIED_DEFS,
+                         ids=[n for _, _, n in COPIED_DEFS])
+def test_copied_definitions_equal_originals(copy, original, name):
+    ported = _definitions((PORT / copy).read_text())
+    orig = _definitions((REPO / "tpucfn" / original).read_text())
+    assert ported[name] == orig[name]

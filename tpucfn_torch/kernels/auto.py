@@ -6,8 +6,11 @@ slot's cache index is a traced value and the Pallas grid takes static
 offsets.  The CUDA forward kernel reads its offsets from memory, so here
 every prefill and decode call of the engine runs it, with one query
 offset per batch row.  The dense/flash training policy of the JAX
-module (``should_use_flash*``, ``auto_attention_static_zero``) belongs
-to the training path and is not ported yet.
+module (``should_use_flash*``, ``auto_attention_static_zero``) is not
+ported: off a TPU and below its tuned thresholds it picks dense, so
+with no H100 tune table the backward kernels would never run.  The
+port's training model pins ``flash_attention`` instead
+(``tpucfn_torch.train.llama_train_fns``).
 """
 
 from __future__ import annotations

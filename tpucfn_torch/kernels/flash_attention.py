@@ -1,28 +1,42 @@
-"""FlashAttention-2 forward on Hopper: the port of the Pallas kernel
-``_fwd_kernel`` in ``tpucfn/kernels/flash_attention.py``.
+"""FlashAttention-2 on Hopper: the port of the three Pallas kernels in
+``tpucfn/kernels/flash_attention.py`` and of their ``jax.custom_vjp``.
 
-The kernel is CUDA C++ (``csrc/flash_fwd.cu``), built with ``nvcc`` for
-``sm_90a`` at first use and bound with ``ctypes``
-(:mod:`tpucfn_torch.kernels._build`).  :func:`flash_fwd` is its wrapper:
-it checks device, dtype, shape and contiguity, allocates O and LSE,
-launches on the current stream, raises if the launch failed, and counts
-the launch in ``flash_fwd.launches``.  Given CPU tensors it computes the
-same function with the plain version,
-:func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse`; a CUDA
-tensor gets the kernel or an exception, never the plain version.
+The kernels are CUDA C++, built with ``nvcc`` for ``sm_90a`` at first use
+and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
 
-The public entry points keep the JAX package's signatures and its
-(B, S, H, D) layout.  ``q_offset`` may also be an int32 tensor of shape
-(B,), one global query position per batch row: the kernel reads it from
-memory, so per-slot offsets (the serving engine's cache indices) cost it
-nothing — the Pallas grid needed static offsets.
+* ``csrc/flash_fwd.cu`` — K1, the forward ``_fwd_kernel``; wrapper
+  :func:`flash_fwd`;
+* ``csrc/flash_bwd.cu`` — the backward: Delta = rowsum(dO*O)
+  (:func:`flash_bwd_delta`), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`)
+  and K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`); :func:`flash_bwd`
+  runs the three.
 
-Block sizes: ``block_q`` rows per CTA — a row is one (query position,
-query head) pair of a KV head's GQA group — and ``block_k`` keys per KV
-tile.  Explicit arguments, then ``TPUCFN_FLASH_BLOCK_Q``/``_K``, then
-64/64.  The JAX package's tuned table holds TPU measurements and is not
-carried over.  Padding to the block is never materialized: the kernel
-masks the ragged edge itself.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, launches on the current stream, raises if the launch failed, and
+counts the launch in its ``launches`` attribute.  Given CPU tensors it
+computes the same function with its plain PyTorch version
+(:func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse` for
+K1, :func:`flash_bwd_plain` for the backward); a CUDA tensor gets the
+kernel or an exception, never the plain version.
+
+:func:`flash_attention` and :func:`flash_attention_with_lse` keep the JAX
+package's signatures and its (B, S, H, D) layout, and are differentiable:
+each runs through a ``torch.autograd.Function`` (the counterparts of
+``_make_flash`` and ``_make_flash_with_lse``) whose backward is
+:func:`flash_bwd`; the second treats LSE as a differentiable output whose
+cotangent feeds dS.  ``q_offset`` may also be an int32 tensor of shape
+(B,), one global query position per batch row: K1 reads it from memory,
+so per-slot offsets (the serving engine's cache indices) cost it nothing.
+Such offsets are forward-only, as in the JAX package, whose backward
+takes static offsets.
+
+Block sizes of K1: ``block_q`` rows per CTA — a row is one (query
+position, query head) pair of a KV head's GQA group — and ``block_k``
+keys per KV tile.  Explicit arguments, then ``TPUCFN_FLASH_BLOCK_Q``/
+``_K``, then 64/64.  The JAX package's tuned table holds TPU measurements
+and is not carried over.  The backward kernels tile 64 x 64 (fixed in
+their source).  Padding to a block is never materialized: the kernels
+mask the ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -32,17 +46,20 @@ import os
 
 import torch
 
-from tpucfn_torch.ops.attention import NEG_INF, dot_product_attention_with_lse
+from tpucfn_torch.ops.attention import (NEG_INF, _repeat_kv,
+                                        dot_product_attention_with_lse)
 
 SUBLANES = 8  # blocks are multiples of this (the JAX package's rule)
 DEFAULT_BLOCK = 64
-HEAD_DIMS = (16, 64, 128)  # the kernel's instantiations: tiny, 1B, 8B
+HEAD_DIMS = (16, 64, 128)  # the kernels' instantiations: tiny, 1B, 8B
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
 MAX_SPLITS = 16  # split-KV CTAs per (q-block, head, row); the combine takes <= 32
 
 __all__ = ["NEG_INF", "flash_attention", "flash_attention_with_lse",
-           "flash_fwd"]
+           "flash_bwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_bwd_delta_plain", "flash_bwd_plain",
+           "flash_bwd_plain_from_delta", "flash_fwd"]
 
 
 def _block_and_pad(s: int, target: int) -> tuple[int, int]:
@@ -145,6 +162,45 @@ def _check_inputs(q, k, v, q_seg, kv_seg):
             raise ValueError("segment ids must be (B, Sq) and (B, Sk)")
 
 
+def _check_cuda(name, alike, others=None):
+    """What every kernel takes: the ``alike`` tensors (name -> tensor) of
+    one dtype, fp32 or bf16, at a head dim the kernels are built for, and
+    the ``others``, all contiguous on the first tensor's CUDA device.
+    Returns the tensors in order, each copied once if its start is not
+    16-byte aligned (the kernels read 16-byte vectors; fresh allocations
+    are 256-byte aligned, so this is rare)."""
+    tensors = {**alike, **(others or {})}
+    first = next(iter(alike.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
+    dtypes = [t.dtype for t in alike.values()]
+    if first.dtype not in DTYPES or len(set(dtypes)) != 1:
+        raise ValueError(f"dtypes {'/'.join(map(str, dtypes))} of "
+                         f"{'/'.join(alike)}: the kernel takes float32 or "
+                         "bfloat16, all alike")
+    if first.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {first.shape[-1]} not in the kernel's "
+                         f"{HEAD_DIMS}")
+    for tname, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{tname} on {t.device}, not {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{tname} must be contiguous")
+    return [t if t.data_ptr() % 16 == 0 else t.clone()
+            for t in tensors.values()]
+
+
+def _segments_on(device, q_seg, kv_seg):
+    if q_seg is None:
+        return None, None
+    return tuple(s.to(device=device, dtype=torch.int32).contiguous()
+                 for s in (q_seg, kv_seg))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int | torch.Tensor = 0,
               k_offset: int = 0, q_seg: torch.Tensor | None = None,
@@ -161,24 +217,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _plain_fwd(q, k, v, causal=causal, q_offset=q_offset,
                           k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
+    q, k, v = _check_cuda("flash_fwd", dict(q=q, k=k, v=v))
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
-                         "takes float32 or bfloat16, all alike")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    # The kernel reads 16-byte vectors; a contiguous view that starts off
-    # that alignment (rare: fresh allocations are 256-byte aligned) is
-    # copied once.
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if isinstance(q_offset, torch.Tensor):
         if q_offset.shape != (b,):
             raise ValueError(f"per-row q_offset must be ({b},), got "
@@ -187,10 +228,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         q_off = torch.full((b,), int(q_offset), dtype=torch.int32,
                            device=q.device)
-    segs = (None, None)
-    if q_seg is not None:
-        segs = tuple(s.to(device=q.device, dtype=torch.int32).contiguous()
-                     for s in (q_seg, kv_seg))
+    segs = _segments_on(q.device, q_seg, kv_seg)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0 or sk == 0:  # nothing to launch; rows see no key
+        return o.zero_(), lse.fill_(NEG_INF)
     # A kernel row is one (query position, query head) of a KV head's group.
     rows = sq * (h // hkv)
     bq, _ = _block_and_pad(rows, bq)
@@ -200,10 +242,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if smem > SMEM_LIMIT:
         raise ValueError(f"blocks {bq}x{bk} need {smem} B of shared memory "
                          f"at head dim {d} (limit {SMEM_LIMIT})")
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, lse
     n_split, split_tiles = _kv_splits(
         -(-rows // bq) * hkv * b, -(-sk // bk),
         torch.cuda.get_device_properties(q.device).multi_processor_count)
@@ -232,6 +270,278 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_fwd.launches = 0
 
+# ---- backward --------------------------------------------------------------
+
+
+def _bwd_lib():
+    from tpucfn_torch.kernels import _build
+
+    lib = _build.load("flash_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # o dout delta; B Sq H D; is_bf16 device; stream
+        lib.flash_bwd_delta.argtypes = [p] * 3 + [i] * 6 + [p]
+        # q k v dout lse delta dlse q_seg kv_seg dq;
+        # B H Hkv Sq Sk D q_offset k_offset causal; scale;
+        # is_bf16 device; stream  (flash_bwd_dkv: dk dv in place of dq)
+        lib.flash_bwd_dq.argtypes = [p] * 10 + [i] * 9 + [
+            ctypes.c_float] + [i] * 2 + [p]
+        lib.flash_bwd_dkv.argtypes = [p] * 11 + [i] * 9 + [
+            ctypes.c_float] + [i] * 2 + [p]
+        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+            fn.restype = i
+        lib.flash_bwd_smem_bytes.argtypes = [i, i]
+        lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_bwd_error_string.argtypes = [i]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.flash_bwd_error_string(err).decode())
+
+
+def flash_bwd_delta_plain(o, do):
+    """The plain version of Delta = rowsum(dO * O), fp32 (B, H, Sq)
+    (``_flash_bwd`` line 393)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_plain_from_delta(q, k, v, lse, delta, do, *, dlse=None,
+                               causal=True, q_offset=0, k_offset=0,
+                               q_seg=None, kv_seg=None):
+    """The plain version of K2 and K3 together, from the same inputs:
+    their arithmetic written out in fp32 (``:275-299``, ``:343-370``).
+    Recompute P = exp(S - LSE) on live pairs, dS = P * (dP - Delta
+    [+ dLSE]) * scale, then dQ = dS K, dK = dS^T Q, dV = P^T dO, summed
+    over each KV head's group of query heads -> (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = d ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kr, vr = _repeat_kv(kf, rep), _repeat_kv(vf, rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    keep = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + int(q_offset)
+        kpos = torch.arange(sk, device=q.device) + int(k_offset)
+        keep = keep & (qpos[:, None] >= kpos[None, :])
+    seg = _segment_mask(q_seg, kv_seg)
+    if seg is not None:
+        keep = keep & seg
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    resid = torch.einsum("bqhd,bkhd->bhqk", dof, vr) - delta[..., None]
+    if dlse is not None:
+        resid = resid + dlse.float()[..., None]
+    ds = p * resid * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(b, sk, hkv, rep, d)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, sk, hkv, rep, d)
+    return dq.to(q.dtype), dk.sum(3).to(k.dtype), dv.sum(3).to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, *, dlse=None, causal=True,
+                    q_offset=0, k_offset=0, q_seg=None, kv_seg=None):
+    """The plain version of the backward: (q, k, v, o, lse (B,H,Sq), dO
+    [, dLSE (B,H,Sq)], segment ids, int offsets) -> (dq, dk, dv) in q's,
+    k's and v's dtypes.  Used for CPU tensors and as the kernels'
+    reference on the card; nothing on the card's main path calls it."""
+    return flash_bwd_plain_from_delta(
+        q, k, v, lse, flash_bwd_delta_plain(o, do), do, dlse=dlse,
+        causal=causal, q_offset=q_offset, k_offset=k_offset, q_seg=q_seg,
+        kv_seg=kv_seg)
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * O), fp32 (B, H, Sq), from o and dO (B, Sq, H,
+    D).  Counts ``flash_bwd_delta.launches``."""
+    if o.shape != do.shape or o.ndim != 4:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         "be one (B, Sq, H, D) shape")
+    if o.device.type == "cpu":
+        return flash_bwd_delta_plain(o, do)
+    o, do = _check_cuda("flash_bwd_delta", dict(o=o, dO=do))
+    b, sq, h, d = o.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    if delta.numel() == 0:
+        return delta
+    lib = _bwd_lib()
+    _raise_on(lib, lib.flash_bwd_delta(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, h, d,
+        int(o.dtype == torch.bfloat16), o.device.index,
+        torch.cuda.current_stream(o.device).cuda_stream), "flash_bwd_delta")
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+flash_bwd_delta.launches = 0
+
+
+def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
+                k_offset, q_seg, kv_seg):
+    """Checks what K2 (which 0) and K3 (which 1) take, allocates their
+    outputs and launches one, counting it in its wrapper's ``launches``;
+    returns (dq,) or (dk, dv).  Empty inputs launch nothing."""
+    wrapper = (flash_bwd_dq, flash_bwd_dkv)[which]
+    name = wrapper.__name__
+    _check_inputs(q, k, v, q_seg, kv_seg)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rows = {"lse": lse, "delta": delta}
+    if dlse is not None:
+        rows["dlse"] = dlse
+    for tname, t in rows.items():
+        if t.shape != (b, h, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{tname} must be float32 {(b, h, sq)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} must have q's shape")
+    if isinstance(q_offset, torch.Tensor):
+        raise NotImplementedError("the backward takes int offsets only")
+    q, k, v, do, lse, delta, *rest = _check_cuda(
+        name, dict(q=q, k=k, v=v, dO=do), rows)
+    dlse = rest[0] if rest else None
+    segs = _segments_on(q.device, q_seg, kv_seg)
+    outs = ((torch.empty_like(q),) if which == 0
+            else (torch.empty_like(k), torch.empty_like(v)))
+    if q.numel() == 0 or k.numel() == 0:
+        for t in outs:
+            t.zero_()
+        return outs
+    lib = _bwd_lib()
+    smem = lib.flash_bwd_smem_bytes(which, d)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name} needs {smem} B of shared memory at head "
+                         f"dim {d} (limit {SMEM_LIMIT})")
+    fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
+    _raise_on(lib, fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(segs[0]),
+        _ptr(segs[1]), *(t.data_ptr() for t in outs),
+        b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
+        int(bool(causal)), d ** -0.5, int(q.dtype == torch.bfloat16),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream),
+        name)
+    wrapper.launches += 1
+    return outs
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, dlse=None, causal=True,
+                 q_offset=0, k_offset=0, q_seg=None, kv_seg=None):
+    """The K2 wrapper: dQ (B, Sq, H, D) in q's dtype.  ``lse``, ``delta``
+    and ``dlse`` are fp32 (B, H, Sq).  Counts ``flash_bwd_dq.launches``."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain_from_delta(
+            q, k, v, lse, delta, do, dlse=dlse, causal=causal,
+            q_offset=q_offset, k_offset=k_offset, q_seg=q_seg,
+            kv_seg=kv_seg)[0]
+    (dq,) = _bwd_launch(0, q, k, v, do, lse, delta, dlse, causal, q_offset,
+                        k_offset, q_seg, kv_seg)
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
+                  q_offset=0, k_offset=0, q_seg=None, kv_seg=None):
+    """The K3 wrapper: (dK, dV) (B, Sk, Hkv, D) in k's and v's dtype, each
+    KV head's gradient summed over its group of query heads.  Counts
+    ``flash_bwd_dkv.launches``."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain_from_delta(
+            q, k, v, lse, delta, do, dlse=dlse, causal=causal,
+            q_offset=q_offset, k_offset=k_offset, q_seg=q_seg,
+            kv_seg=kv_seg)[1:]
+    return _bwd_launch(1, q, k, v, do, lse, delta, dlse, causal, q_offset,
+                       k_offset, q_seg, kv_seg)
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, *, dlse=None, causal=True, q_offset=0,
+              k_offset=0, q_seg=None, kv_seg=None):
+    """The backward of :func:`flash_fwd` (``_flash_bwd``): (dq, dk, dv).
+    CPU tensors take :func:`flash_bwd_plain`; CUDA tensors run Delta, K2
+    and K3."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, dlse=dlse, causal=causal,
+                               q_offset=q_offset, k_offset=k_offset,
+                               q_seg=q_seg, kv_seg=kv_seg)
+    delta = flash_bwd_delta(o, do)
+    kw = dict(dlse=dlse, causal=causal, q_offset=q_offset, k_offset=k_offset,
+              q_seg=q_seg, kv_seg=kv_seg)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+# ---- autograd --------------------------------------------------------------
+
+
+class _Flash(torch.autograd.Function):
+    """``flash_attention``'s VJP (``_make_flash``): saves (q, k, v, o, lse)
+    and the segment ids, which get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, q_offset, k_offset,
+                block_q, block_k):
+        o, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                           k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg,
+                           block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
+        ctx.static = (causal, q_offset, k_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+        causal, q_offset, k_offset = ctx.static
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
+                               causal=causal, q_offset=q_offset,
+                               k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+class _FlashWithLse(torch.autograd.Function):
+    """``flash_attention_with_lse``'s VJP (``_make_flash_with_lse``): LSE
+    is a second differentiable output; its cotangent dLSE feeds dS."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, k_offset, block_q, block_k):
+        ctx.set_materialize_grads(False)
+        o, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                           k_offset=k_offset, block_q=block_q,
+                           block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.static = (causal, q_offset, k_offset)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, q_offset, k_offset = ctx.static
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, dlse=dlse, causal=causal,
+                               q_offset=q_offset, k_offset=k_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _refuse_row_offsets_under_grad(q_offset, *tensors):
+    if (isinstance(q_offset, torch.Tensor) and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(
+            "a per-row q_offset tensor is forward-only (the backward takes "
+            "static offsets, as in the JAX package); run under "
+            "torch.no_grad() or pass an int")
+
 
 def flash_attention_with_lse(
     q: torch.Tensor,  # (B, SQ, H, D)
@@ -247,11 +557,13 @@ def flash_attention_with_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (B,SQ,H,D), lse (B,SQ,H)) — the flash counterpart of
     :func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse`
-    (rows attending to nothing give lse = NEG_INF).  ``interpret`` is
-    kept for the JAX signature; the tensors' device picks the path."""
+    (rows attending to nothing give lse = NEG_INF).  Differentiable in both
+    outputs.  ``interpret`` is kept for the JAX signature; the tensors'
+    device picks the path."""
     del interpret
-    o, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
-                       k_offset=k_offset, block_q=block_q, block_k=block_k)
+    _refuse_row_offsets_under_grad(q_offset, q, k, v)
+    o, lse = _FlashWithLse.apply(q, k, v, causal, q_offset, k_offset,
+                                 block_q, block_k)
     return o, lse.transpose(1, 2)
 
 
@@ -280,11 +592,10 @@ def flash_attention(
     if mask is not None:
         raise NotImplementedError(
             "flash_attention supports causal/segment masking only")
+    _refuse_row_offsets_under_grad(q_offset, q, k, v)
     q_seg = kv_seg = None
     if segment_ids is not None:
         q_seg, kv_seg = (segment_ids if isinstance(segment_ids, tuple)
                          else (segment_ids, segment_ids))
-    o, _ = flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
-                     k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg,
-                     block_q=block_q, block_k=block_k)
-    return o
+    return _Flash.apply(q, k, v, q_seg, kv_seg, causal, q_offset, k_offset,
+                        block_q, block_k)

@@ -9,8 +9,14 @@ port's state dict:
   (``layers_{i}``) maps one to one;
 * ``DenseGeneral`` kernels are (in, out); ``nn.Linear`` weights are
   (out, in), so each is transposed;
-* every tensor is cast to the port's storage dtype (matmul weights and
-  the embedding in the compute dtype, norms and the LM head fp32).
+* every tensor is cast to the port's storage dtype: matmul weights and
+  the embedding in ``cfg.param_dtype`` (fp32 for training, so nothing is
+  rounded) or, when that is None, the compute dtype (serving); norms and
+  the LM head fp32.
+
+The mapping is the same for any tree shaped like the params, so it also
+carries a JAX gradient tree into the port's names (the tests compare
+gradients tensor by tensor that way).
 """
 
 from __future__ import annotations

@@ -5,11 +5,12 @@ Module and parameter names follow the JAX package (q_proj/k_proj/v_proj/
 o_proj, gate_proj/up_proj/down_proj, ``scale`` of the norms), so the
 weight converter (:mod:`tpucfn_torch.models.convert`) maps name to name.
 
-Mixed precision as in the JAX package: activations in the compute dtype
-(bf16 for the Llama presets), norms and RoPE in fp32.  The JAX package
-keeps fp32 params and casts each matmul weight to the compute dtype on
-every call; the port stores the matmul weights in the compute dtype
-once, at load — the same rounding, done once.
+Mixed precision as in the JAX package (flax ``dtype``/``param_dtype``):
+activations in the compute dtype (bf16 for the Llama presets), norms and
+RoPE in fp32.  Matmul weights are stored in ``param_dtype`` and cast to
+the compute dtype in each call.  Training stores them in fp32 (master
+weights, fp32 gradients); serving stores them in the compute dtype, where
+the cast is a no-op — the same rounding, done once at load.
 """
 
 from __future__ import annotations
@@ -67,8 +68,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 AttentionFn = Callable[..., torch.Tensor]
 
 
-def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=dtype, device=device)
+class Dense(nn.Linear):
+    """A bias-free linear layer whose weight is stored in ``param_dtype``
+    and used in the compute ``dtype`` (flax ``DenseGeneral(dtype=...,
+    param_dtype=...)``)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 param_dtype: torch.dtype | None = None, device=None):
+        super().__init__(n_in, n_out, bias=False, dtype=param_dtype or dtype,
+                         device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
 
 
 class CausalSelfAttention(nn.Module):
@@ -82,6 +95,7 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, dim: int, n_heads: int, n_kv_heads: int, head_dim: int,
                  *, rope_theta: float = 500000.0, max_seq: int = 8192,
                  dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None,
                  attention_fn: AttentionFn = dot_product_attention,
                  decode: bool = False, device=None):
         super().__init__()
@@ -89,16 +103,22 @@ class CausalSelfAttention(nn.Module):
         self.rope_theta, self.max_seq, self.dtype = rope_theta, max_seq, dtype
         self.attention_fn = attention_fn
         self.decode = decode
-        self.q_proj = _linear(dim, n_heads * head_dim, dtype, device)
-        self.k_proj = _linear(dim, n_kv_heads * head_dim, dtype, device)
-        self.v_proj = _linear(dim, n_kv_heads * head_dim, dtype, device)
-        self.o_proj = _linear(n_heads * head_dim, dim, dtype, device)
+        self.q_proj = Dense(dim, n_heads * head_dim, dtype, param_dtype, device)
+        self.k_proj = Dense(dim, n_kv_heads * head_dim, dtype, param_dtype,
+                            device)
+        self.v_proj = Dense(dim, n_kv_heads * head_dim, dtype, param_dtype,
+                            device)
+        self.o_proj = Dense(n_heads * head_dim, dim, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, *, positions=None, q_offset=0,
-                rope=None, kv_cache=None, cache_index=None) -> torch.Tensor:
+                rope=None, kv_cache=None, cache_index=None,
+                attention_fn: AttentionFn | None = None) -> torch.Tensor:
         """``rope``: precomputed (cos, sin) tables (computed here when
         None).  Decode mode needs ``kv_cache`` = (keys, values), each
-        (B, capacity, Hkv, D), and ``cache_index`` (B,) int32."""
+        (B, capacity, Hkv, D), and ``cache_index`` (B,) int32.
+        ``attention_fn`` overrides the module's for this call (the packed
+        path's segment-masked op)."""
+        attention_fn = attention_fn or self.attention_fn
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.n_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.n_kv_heads, self.head_dim)
@@ -128,8 +148,8 @@ class CausalSelfAttention(nn.Module):
             values[rows, cols] = v.to(values.dtype)
             # q lives at global positions [i, i+s); cache slots beyond are
             # dead and masked out by causality.
-            out = self.attention_fn(q, keys, values, causal=True,
-                                    q_offset=cache_index, k_offset=0)
+            out = attention_fn(q, keys, values, causal=True,
+                               q_offset=cache_index, k_offset=0)
             # Past-capacity decoding would silently clamp the RoPE gather
             # and the cache write; poison the output instead so overflow is
             # loud (NaNs) rather than quietly wrong.
@@ -140,19 +160,20 @@ class CausalSelfAttention(nn.Module):
                 positions = torch.arange(s, device=x.device) + q_offset
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
-            out = self.attention_fn(q, k, v, causal=True,
-                                    q_offset=q_offset, k_offset=q_offset)
+            out = attention_fn(q, k, v, causal=True,
+                               q_offset=q_offset, k_offset=q_offset)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
         return self.o_proj(out)
 
 
 class SwiGLUMLP(nn.Module):
     def __init__(self, dim: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None, device=None):
         super().__init__()
-        self.gate_proj = _linear(dim, ffn_dim, dtype, device)
-        self.up_proj = _linear(dim, ffn_dim, dtype, device)
-        self.down_proj = _linear(ffn_dim, dim, dtype, device)
+        self.gate_proj = Dense(dim, ffn_dim, dtype, param_dtype, device)
+        self.up_proj = Dense(dim, ffn_dim, dtype, param_dtype, device)
+        self.down_proj = Dense(ffn_dim, dim, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

@@ -3,10 +3,13 @@ and ``Llama`` in ``tpucfn/models/llama.py``).
 
 RMSNorm pre-norm, GQA attention with RoPE (theta 500k), SwiGLU MLP,
 untied LM head; activations in the compute dtype, norms and the LM head
-in fp32.  Layers are a plain ``nn.ModuleList``: the JAX package's
-``nn.scan`` stacking is undone by the weight converter.  The dense MLP
-only (a MoE config raises); sharding rules, losses and remat belong to
-the training path and are not ported yet.
+in fp32, matmul weights and the embedding stored in ``param_dtype`` (fp32
+for training; the compute dtype, by default, for serving).  Layers are a
+plain ``nn.ModuleList``: the JAX package's ``nn.scan`` stacking is undone
+by the weight converter; ``remat`` wraps each block in
+``torch.utils.checkpoint``.  The dense MLP only (a MoE config raises).
+Also here: the training losses (``causal_lm_loss``,
+``chunked_causal_lm_loss``).  Sharding rules wait for the mesh slice.
 
 Decode mode keeps its KV cache outside the module, in a
 :class:`DecodeCache` the caller owns and passes to every call.
@@ -20,6 +23,7 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpucfn_torch.models.layers import (
     AttentionFn,
@@ -29,6 +33,24 @@ from tpucfn_torch.models.layers import (
     rope_frequencies,
 )
 from tpucfn_torch.ops.attention import dot_product_attention
+
+
+def remat_policy(remat: bool | str) -> bool:
+    """Whether a ``LlamaConfig.remat`` value checkpoints each block:
+    ``True``/``"full"`` recompute the whole block in the backward,
+    ``False``/``"none"`` keep every activation.  The JAX package's
+    selective policies save matmul outputs; they are not ported yet."""
+    if remat in (True, "full"):
+        return True
+    if remat in (False, "none"):
+        return False
+    if remat in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat={remat!r} (a selective checkpoint policy) is not ported "
+            "yet; use True/'full' or False/'none'")
+    raise ValueError(
+        f"remat={remat!r} — expected True/'full', 'dots', "
+        "'dots_no_batch', or False/'none'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +65,19 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # Storage dtype of the matmul weights and the embedding: None stores
+    # them in the compute dtype (serving); training passes torch.float32,
+    # the JAX package's default.  Norm scales and the LM head stay fp32.
+    param_dtype: torch.dtype | None = None
+    remat: bool | str = True  # see remat_policy; a no-op outside autograd
     moe: Any = None  # a MoE config is not supported by the port yet
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def __post_init__(self):
+        remat_policy(self.remat)  # validate early, not at first call
 
     @classmethod
     def llama3_8b(cls) -> "LlamaConfig":
@@ -109,14 +139,17 @@ class LlamaBlock(nn.Module):
         self.attn = CausalSelfAttention(
             cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
-            attention_fn=attention_fn, decode=decode, device=device)
+            param_dtype=cfg.param_dtype, attention_fn=attention_fn,
+            decode=decode, device=device)
         self.post_attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
-        self.mlp = SwiGLUMLP(cfg.dim, cfg.ffn_dim, cfg.dtype, device)
+        self.mlp = SwiGLUMLP(cfg.dim, cfg.ffn_dim, cfg.dtype, cfg.param_dtype,
+                             device)
 
     def forward(self, x, *, q_offset=0, rope=None, kv_cache=None,
-                cache_index=None):
+                cache_index=None, attention_fn=None):
         x = x + self.attn(self.input_norm(x), q_offset=q_offset, rope=rope,
-                          kv_cache=kv_cache, cache_index=cache_index)
+                          kv_cache=kv_cache, cache_index=cache_index,
+                          attention_fn=attention_fn)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -133,7 +166,8 @@ class Llama(nn.Module):
         self.decode = decode
         attention_fn = attention_fn or dot_product_attention
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim,
-                                         dtype=cfg.dtype, device=device)
+                                         dtype=cfg.param_dtype or cfg.dtype,
+                                         device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(cfg, attention_fn, decode, device)
             for _ in range(cfg.n_layers))
@@ -144,18 +178,22 @@ class Llama(nn.Module):
     @classmethod
     def from_state_dict(cls, cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
                         *, attention_fn: AttentionFn | None = None,
-                        decode: bool = False, device=None) -> "Llama":
+                        decode: bool = False, device=None,
+                        trainable: bool = False) -> "Llama":
         """A model over ``params`` (the port's state dict).  Tensors already
         on ``device`` in their storage dtype are used as they are, not
         copied — several models (the engine's and ``generate``'s) can share
-        one set of weights."""
+        one set of weights, and a training loss builds its model over the
+        trainer's parameters in each call.  The weights are frozen unless
+        ``trainable``; then ``nn.Parameter`` values stay the very objects
+        passed, so their gradients land where the caller looks."""
         with torch.device("meta"):
             model = cls(cfg, attention_fn=attention_fn, decode=decode)
         want = model.state_dict()
         model.load_state_dict(
             {name: params[name].to(device=device, dtype=want[name].dtype)
              for name in want}, strict=True, assign=True)
-        return model.requires_grad_(False)
+        return model if trainable else model.requires_grad_(False)
 
     def init_cache(self, batch: int, capacity: int | None = None,
                    device=None) -> DecodeCache:
@@ -168,12 +206,20 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *, q_offset=0,
                 cache: DecodeCache | None = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
         """tokens: (B, S) int → logits (B, S, vocab) fp32, or with
-        ``return_hidden`` the (B, S, dim) final-norm hidden states.
+        ``return_hidden`` the (B, S, dim) final-norm hidden states (pair
+        with :func:`chunked_causal_lm_loss`).
 
         Decode mode needs ``cache``: every layer writes its K/V at the
-        rows' ``cache.index`` and the index advances by S."""
+        rows' ``cache.index`` and the index advances by S.
+
+        ``segment_ids`` (B, S) enables packed-sequence training: attention
+        is masked across document boundaries (the kernel's segment path on
+        the card, a dense mask on the CPU) — pair with
+        ``packed_causal_lm_loss``.  Overrides ``attention_fn``;
+        incompatible with decode and with a nonzero ``q_offset``."""
         cfg = self.cfg
         if self.decode:
             if cache is None:
@@ -181,16 +227,33 @@ class Llama(nn.Module):
             if not (isinstance(q_offset, int) and q_offset == 0):
                 raise ValueError(
                     "decode mode is incompatible with q_offset/SP sharding")
-        x = self.embed_tokens(tokens)
+        attention_fn = None
+        if segment_ids is not None:
+            if self.decode:
+                raise ValueError("segment_ids is incompatible with decode mode")
+            if not (isinstance(q_offset, int) and q_offset == 0):
+                raise ValueError(
+                    "segment_ids is incompatible with q_offset/SP sharding")
+            from tpucfn_torch.data.packing import packed_attention_fn
+
+            attention_fn = packed_attention_fn(segment_ids)
+        x = self.embed_tokens(tokens).to(cfg.dtype)
         rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=x.device)
+        remat = (not self.decode and remat_policy(cfg.remat)
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if self.decode:
                 x = layer(x, rope=rope,
                           kv_cache=(cache.keys[i], cache.values[i]),
                           cache_index=cache.index)
+            elif remat:
+                x = checkpoint(layer, x, use_reentrant=False,
+                               q_offset=q_offset, rope=rope,
+                               attention_fn=attention_fn)
             else:
-                x = layer(x, q_offset=q_offset, rope=rope)
+                x = layer(x, q_offset=q_offset, rope=rope,
+                          attention_fn=attention_fn)
         if self.decode:
             cache.index.add_(tokens.shape[1])
         x = self.final_norm(x)
@@ -205,8 +268,9 @@ def init_llama_params(cfg: LlamaConfig, *, generator: torch.Generator,
     and scales of flax's defaults: the embedding ~ N(0, 1/dim); every
     dense kernel lecun-normal (a normal truncated at ±2σ, σ =
     sqrt(1/fan_in)/0.8796); norm scales one.  Returned in the port's
-    storage dtypes.  (The numbers differ from JAX's; parity tests carry
-    JAX's own weights across with :mod:`tpucfn_torch.models.convert`.)"""
+    storage dtypes (``cfg.param_dtype``).  (The numbers differ from JAX's;
+    parity tests carry JAX's own weights across with
+    :mod:`tpucfn_torch.models.convert`.)"""
     with torch.device("meta"):
         shapes = Llama(cfg).state_dict()
     params = {}
@@ -222,3 +286,58 @@ def init_llama_params(cfg: LlamaConfig, *, generator: torch.Generator,
                                   generator=generator)
         params[name] = w.to(meta.dtype)
     return params
+
+
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        z_loss: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE (optax ``softmax_cross_entropy_with_integer_labels``)
+    plus ``z_loss * logsumexp**2``, and whether the argmax hits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    per_tok = lse - logits.gather(-1, targets[..., None])[..., 0]
+    if z_loss:
+        per_tok = per_tok + z_loss * lse ** 2
+    return per_tok, logits.argmax(-1) == targets
+
+
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
+                   z_loss: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross entropy (mean over B, S-1) + optional z-loss.
+
+    Returns (loss, accuracy)."""
+    per_tok, hit = token_cross_entropy(logits[:, :-1].float(),
+                                       tokens[:, 1:].long(), z_loss)
+    return per_tok.mean(), hit.float().mean()
+
+
+def chunked_causal_lm_loss(
+    hidden: torch.Tensor,          # (B, S, D) — Llama(..., return_hidden=True)
+    lm_head_weight: torch.Tensor,  # (V, D), the port's nn.Linear layout
+    tokens: torch.Tensor,          # (B, S) int
+    *,
+    chunk_size: int = 512,
+    z_loss: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token CE + accuracy without the (B, S, V) fp32 logits.
+
+    Equal to ``causal_lm_loss(logits(hidden), tokens)`` up to fp32 sum
+    order: a loop over sequence chunks computes each chunk's logits,
+    reduces them to a CE sum and a hit count and drops them; each chunk
+    runs under ``torch.utils.checkpoint``, so the backward recomputes its
+    logits instead of keeping them.  Peak logits memory is (B, chunk, V)."""
+    b, s, _ = hidden.shape
+    n = s - 1
+    c = max(1, min(chunk_size, n))
+
+    def chunk_sums(w, h_c, t_c):
+        per_tok, hit = token_cross_entropy(F.linear(h_c.float(), w.float()),
+                                           t_c, z_loss)
+        return per_tok.sum(), hit.float().sum()
+
+    ce = correct = hidden.new_zeros((), dtype=torch.float32)
+    pred, targets = hidden[:, :-1], tokens[:, 1:].long()
+    for i in range(0, n, c):
+        ce_c, cor_c = checkpoint(chunk_sums, lm_head_weight,
+                                 pred[:, i:i + c], targets[:, i:i + c],
+                                 use_reentrant=False)
+        ce, correct = ce + ce_c, correct + cor_c
+    return ce / (b * n), correct / (b * n)

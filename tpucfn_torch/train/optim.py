@@ -1,0 +1,123 @@
+"""The optimizer chain of the JAX package's examples, with optax's
+definitions (the port of what ``optax`` gives ``tpucfn/train``).
+
+A transform has ``init(params) -> state`` and ``update(grads, state,
+params) -> grads``; the last transform of a :func:`chain` applies the
+update to the parameters in place and returns ``None``.  ``params`` and
+``grads`` are dicts of tensors with the same keys; gradients are
+transformed in place.
+
+* :func:`clip_by_global_norm` — optax's formula, g * max_norm /
+  max(||g||, max_norm), with the norm over every gradient together
+  (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is not
+  used).
+* :func:`adamw` — ``torch.optim.AdamW`` with optax's defaults stated
+  (b1 0.9, b2 0.999, eps 1e-8 added outside the square root,
+  weight_decay 1e-4; PyTorch's own default decay is 0.01).  The learning
+  rate is a float or a schedule of the update count, read before each
+  update, so the first update runs at ``schedule(0)``.
+* :func:`warmup_cosine_decay_schedule` — optax's: a linear warmup from
+  ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+  decay to ``end_value``; ``decay_steps`` counts the warmup too.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError("the cosine decay needs decay_steps > warmup_steps, "
+                         f"got {decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / cosine_steps))
+        return peak_value * ((1 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
+class _ClipByGlobalNorm:
+    def __init__(self, max_norm: float):
+        self.max_norm = float(max_norm)
+
+    def init(self, params: dict[str, torch.Tensor]) -> tuple:
+        return ()
+
+    def update(self, grads, state, params):
+        del state, params
+        gs = list(grads.values())
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in gs]))
+        factor = self.max_norm / torch.clamp(norm, min=self.max_norm)
+        torch._foreach_mul_(gs, factor)
+        return grads
+
+
+def clip_by_global_norm(max_norm: float) -> _ClipByGlobalNorm:
+    return _ClipByGlobalNorm(max_norm)
+
+
+class _AdamW:
+    def __init__(self, learning_rate: float | Schedule, b1: float, b2: float,
+                 eps: float, weight_decay: float):
+        self.learning_rate = learning_rate
+        self.kwargs = dict(betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+
+    def _lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count) if callable(lr) else lr)
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict[str, Any]:
+        opt = torch.optim.AdamW(list(params.values()), lr=self._lr(0),
+                                **self.kwargs)
+        return {"optimizer": opt, "count": 0}
+
+    def update(self, grads, state, params) -> None:
+        opt = state["optimizer"]
+        for group in opt.param_groups:
+            group["lr"] = self._lr(state["count"])
+        for name, p in params.items():
+            p.grad = grads[name]
+        opt.step()
+        for p in params.values():
+            p.grad = None
+        state["count"] += 1
+        return None
+
+
+def adamw(learning_rate: float | Schedule, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> _AdamW:
+    return _AdamW(learning_rate, b1, b2, eps, weight_decay)
+
+
+class _Chain:
+    def __init__(self, transforms):
+        self.transforms = tuple(transforms)
+
+    def init(self, params):
+        return tuple(t.init(params) for t in self.transforms)
+
+    def update(self, grads, state, params):
+        for t, s in zip(self.transforms, state):
+            grads = t.update(grads, s, params)
+        return grads
+
+
+def chain(*transforms) -> _Chain:
+    return _Chain(transforms)
