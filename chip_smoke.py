@@ -10,31 +10,37 @@ Phases, each printed as one JSON line:
    gives them (also printed raw on a line of its own, here and again
    just before the ``{"kernels": ...}`` line).
 2. ``build``: compiles every kernel source of the serving and training
-   paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu`` and
-   ``flash_bwd.cu``) with ``nvcc`` for ``sm_90a``, one process per source,
-   all started together.
+   paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu``,
+   ``flash_fwd_sm90.cu``, ``flash_bwd.cu`` and ``flash_bwd_dkv_sm90.cu``)
+   with ``nvcc`` for ``sm_90a``, one process per source, all started
+   together.
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
    decode and prefill), the training path's (2 x 2048, causal) and at
-   the edge cases (fp32/D=16/GQA, empty rows,
-   segment ids, non-causal); error, tolerance, times of the kernel, the
+   the edge cases (D=16/GQA and ragged D=128 with offsets, in fp32 and
+   bf16; empty rows, segment ids, non-causal; a GQA group of 3); each
+   row names the variant that ran (``sm90``: wgmma tensor cores, bf16
+   with at least 64 packed rows; ``fma``: split-KV, fp32 and decode);
+   error, tolerance, times of the kernel, the
    plain version and one PyTorch library call
    (``scaled_dot_product_attention`` with a boolean mask, or
    ``is_causal`` for a plain causal square case: a yardstick only, never
    called by the port), and the roofline bound.
-4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV)
-   — against the plain backward on the same inputs, at the training
-   shape (llama3-1b, B=2, S=2048, bf16) and the edge cases (fp32 D=16 GQA
-   2, fp32 D=128 with a query offset, segment ids, a nonzero dLSE, empty
-   rows, non-causal ragged lengths); error beside its tolerance, kernel,
+4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV,
+   variant ``sm90`` in bf16, ``fma`` in fp32 or for a GQA group that
+   does not divide 64) — against the plain backward on the same inputs,
+   at the training shape (llama3-1b, B=2, S=2048, bf16) and the edge
+   cases (D=16 GQA 2, D=128 with a query offset and a nonzero dLSE, each
+   in fp32 and bf16; segment ids, empty rows, non-causal ragged lengths,
+   a GQA group of 3); error beside its tolerance, kernel,
    bound, plain and library ms (the library yardstick is the backward of
    one ``scaled_dot_product_attention`` call for K2 and K3, and one
    ``torch.linalg.vecdot`` for Delta); an empty call counts no launch.
 5. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
    full width and depth of llama3-1b (random weights from a seed) answers
    8 requests; every request completes, no KV block leaks, the kernel ran
-   on every layer of every prefill and decode call, and teacher-forced
-   logits agree with the plain attention path.
+   on every layer of every prefill (``sm90``) and decode (``fma``) call,
+   and teacher-forced logits agree with the plain attention path.
 6. ``serve_tiny_fp32``: the tiny preset in fp32; the engine's greedy
    tokens (kernel) equal ``generate``'s (plain attention).
 7. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
@@ -43,17 +49,20 @@ Phases, each printed as one JSON line:
    ``synthetic_tokens`` batch of 2 x 2048 at the full width and depth of
    llama3-1b (random weights from seed 0): finite losses, the last below
    the first, and per step exactly 32 K1 launches (forward and remat
-   recompute), 16 K2, 16 K3 and 16 Delta; then loss and every gradient
+   recompute), 16 K2, 16 K3 and 16 Delta, every K1 and K3 launch on the
+   ``sm90`` variant; then loss and every gradient
    against the plain attention path (loss within a tolerance, cosine
    >= 0.99), step time, tokens/s, peak memory, model flops over the
    bf16 peak, and a profiled step.
 8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
    kernels against the plain path: losses equal to fp32 sum order.
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``.  Any failed phase exits non-zero before that line.  Without a
-CUDA device, or without the package beside it, the script exits 1 and
-prints no result.
+Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
+launched on a path above) and, last, ``{"ok": true, "device": {...}}``.
+``--phases device,build,kernel`` (any subset) gives a partial run that
+prints no result line.  Any failed phase exits non-zero before that
+line.  Without a CUDA device, or without the package beside it, the
+script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -70,17 +79,19 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
-SOURCES = ("flash_fwd", "flash_bwd")  # tpucfn_torch/kernels/csrc/<name>.cu
+# tpucfn_torch/kernels/csrc/<name>.cu
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_dkv_sm90")
 
 # NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-# K1 against its plain version.  bf16: the plain version rounds P to bf16
-# before the PV product (as the JAX dense path does) while the kernel
-# keeps P in fp32, so O differs by up to ~2^-9 * max|v| plus the output's
-# own bf16 rounding; LSE is fp32 on both sides (sum order only).  fp32:
-# sum order only.
+# K1 against its plain version.  bf16: both round P to bf16 before the PV
+# product (the plain version as the JAX dense path does, the sm90 kernel
+# as the A operand of its wgmma, though of exp(S - running max) rather
+# than of the normalized P) while the fma kernel keeps P in fp32, so O
+# differs by up to ~2^-9 * max|v| plus the output's own bf16 rounding;
+# LSE is fp32 on both sides (sum order only).  fp32: sum order only.
 TOL = {"torch.bfloat16": {"o": 2e-2, "lse": 1e-3},
        "torch.float32": {"o": 2e-5, "lse": 2e-5}}
 # Teacher-forced llama3-1b logits, kernel path vs plain path (bf16): the
@@ -184,6 +195,8 @@ def _kernel_cases(torch):
     cases += [
         ("tiny_fp32_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64,
                                     dtype=f32, q_offset=[0, 0])),
+        ("bf16_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64, dtype=bf,
+                               q_offset=[0, 0])),
         ("empty_rows_k_offset", dict(b=2, h=4, hkv=4, d=64, sq=128, sk=128,
                                      dtype=bf, q_offset=[0, 0], k_offset=40)),
         ("segment_ids", dict(b=2, h=8, hkv=2, d=64, sq=256, sk=256, dtype=bf,
@@ -194,6 +207,12 @@ def _kernel_cases(torch):
         ("fp32_d128_two_chunk_tiles", dict(b=2, h=8, hkv=4, d=128, sq=96,
                                            sk=160, dtype=f32,
                                            q_offset=[0, 64])),
+        ("bf16_d128_ragged_q_offset", dict(b=2, h=8, hkv=4, d=128, sq=96,
+                                           sk=160, dtype=bf,
+                                           q_offset=[0, 64])),
+        # a GQA group of 3 does not divide the 64-row tile: fma in bf16
+        ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
+                           q_offset=[0, 32])),
     ]
     return cases
 
@@ -226,8 +245,12 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
             q, k, v, causal=causal, mask=mask, q_offset=q_off,
             k_offset=k_offset)
 
+    before = dict(fa.flash_fwd.launches_by_variant)
     o, lse = kernel()
     torch.cuda.synchronize()
+    (variant,) = [k for k, n in fa.flash_fwd.launches_by_variant.items()
+                  if n != before[k]]
+    assert variant == fa.fwd_variant(dtype, sq, h, hkv), variant
     ro, rlse = plain()
     rlse = rlse.transpose(1, 2)
     tol = TOL[str(dtype)]
@@ -273,9 +296,10 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     flops = 4 * d * h * int(live.sum())  # QK^T and PV, 2 flops per MAC
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-    return {"case": label, "shape": dict(b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk,
-                                         dtype=str(dtype), causal=causal,
-                                         k_offset=k_offset, segments=segments),
+    return {"case": label, "variant": variant,
+            "shape": dict(b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk,
+                          dtype=str(dtype), causal=causal,
+                          k_offset=k_offset, segments=segments),
             "ok": ok, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
             "tol": tol, "finite": finite, "empty_rows": int(empty.sum()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -290,7 +314,6 @@ def phase_kernel(results):
     from tpucfn_torch.kernels import flash_attention as fa
 
     timer = Timer(torch)
-    before = fa.flash_fwd.launches
     rows = []
     for label, kw in _kernel_cases(torch):
         row = _one_case(torch, timer, label, **kw)
@@ -300,8 +323,9 @@ def phase_kernel(results):
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    if fa.flash_fwd.launches == before:
-        raise AssertionError("the comparisons never launched the kernel")
+    missing = {"sm90", "fma"} - {r["variant"] for r in rows}
+    if missing:
+        raise AssertionError(f"no comparison launched the {missing} variant")
     return {"cases": len(rows),
             "worst_max_abs_err": max(r["max_abs_err"] for r in rows)}
 
@@ -324,16 +348,25 @@ def _bwd_cases(torch):
                                  dtype=bf)),
         ("fp32_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64,
                                dtype=f32)),
+        ("bf16_d16_gqa2", dict(b=2, h=4, hkv=2, d=16, sq=64, sk=64,
+                               dtype=bf)),
         ("fp32_d128_q_offset", dict(b=2, h=8, hkv=4, d=128, sq=96, sk=160,
                                     dtype=f32, q_offset=64)),
+        ("bf16_d128_q_offset", dict(b=2, h=8, hkv=4, d=128, sq=96, sk=160,
+                                    dtype=bf, q_offset=64)),
         ("segment_ids", dict(b=2, h=8, hkv=2, d=64, sq=256, sk=256, dtype=bf,
                              segments=True)),
         ("dlse_fp32", dict(b=2, h=8, hkv=2, d=64, sq=128, sk=128, dtype=f32,
+                           dlse=True)),
+        ("dlse_bf16", dict(b=2, h=8, hkv=2, d=64, sq=128, sk=128, dtype=bf,
                            dlse=True)),
         ("empty_rows_k_offset", dict(b=2, h=4, hkv=4, d=64, sq=128, sk=128,
                                      dtype=bf, k_offset=40)),
         ("non_causal_ragged_d128", dict(b=2, h=8, hkv=8, d=128, sq=200,
                                         sk=300, dtype=bf, causal=False)),
+        # a GQA group of 3 does not divide the 64-row tile: K3 fma in bf16
+        ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
+                           q_offset=32)),
     ]
 
 
@@ -384,8 +417,12 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
               q_seg=q_seg, kv_seg=kv_seg)
     delta = fa.flash_bwd_delta(o, do)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    before = dict(fa.flash_bwd_dkv.launches_by_variant)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
+    (variant,) = [k for k, n in fa.flash_bwd_dkv.launches_by_variant.items()
+                  if n != before[k]]
+    assert variant == fa.dkv_variant(dtype, h, hkv), variant
     ref_delta = fa.flash_bwd_delta_plain(o, do)
     ref = fa.flash_bwd_plain_from_delta(q, k, v, lse, delta, do, **kw)
 
@@ -446,6 +483,7 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
             2 * n_q + 4 * n_kv + 2 * rows + dl_bytes + seg_bytes,
             2 * 4 * d * pairs),
     }
+    rows_out["dkv"]["variant"] = variant
     return {"case": label, "shape": dict(
         b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk, dtype=str(dtype), causal=causal,
         q_offset=q_offset, k_offset=k_offset, segments=segments, dlse=dlse),
@@ -458,7 +496,8 @@ def _empty_calls_count_nothing(torch, fa):
     so no wrapper counts it."""
     wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
                 fa.flash_bwd_dkv)
-    before = [w.launches for w in wrappers]
+    before = [w.launches for w in wrappers] + [
+        dict(w.launches_by_variant) for w in (fa.flash_fwd, fa.flash_bwd_dkv)]
     q = torch.empty(1, 0, 4, 64, dtype=torch.bfloat16, device="cuda")
     kv = torch.randn(1, 16, 2, 64, device="cuda").to(torch.bfloat16)
     rows = torch.empty(1, 4, 0, device="cuda")
@@ -467,7 +506,9 @@ def _empty_calls_count_nothing(torch, fa):
     fa.flash_bwd_dq(q, kv, kv, q, rows, rows)
     dk, dv = fa.flash_bwd_dkv(q, kv, kv, q, rows, rows)
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers] == before, "an empty call counted"
+    assert [w.launches for w in wrappers] + [
+        w.launches_by_variant for w in (fa.flash_fwd, fa.flash_bwd_dkv)
+    ] == before, "an empty call counted"
     assert not dk.any() and not dv.any(), "dK/dV of no queries must be 0"
 
 
@@ -492,6 +533,10 @@ def phase_kernel_bwd(results):
                              f"backward: {bad}")
     if any(c.launches == n for c, n in zip(counters, before)):
         raise AssertionError("the comparisons never launched a kernel")
+    missing = {"sm90", "fma"} - {r["dkv"]["variant"] for r in rows}
+    if missing:
+        raise AssertionError(f"no comparison launched the {missing} K3 "
+                             "variant")
     _empty_calls_count_nothing(torch, fa)
     return {"cases": len(rows), "worst_max_abs_err": {
         k: max(r[k]["max_abs_err"] for r in rows)
@@ -590,20 +635,26 @@ def phase_serve_llama3_1b(results):
     _instrument(engine, counts)
     server = Server(engine, num_blocks=cache_len * 8 // 16, block_size=16,
                     prefix_cache=True, max_prefill_batch=4)
-    fa.flash_fwd.launches = 0
+    _zero_launch_counts()
     reqs = [server.submit(p, max_new_tokens=max_new) for p in prompts]
     server.run_until_idle()
     torch.cuda.synchronize()
     launches = fa.flash_fwd.launches
+    by_variant = dict(fa.flash_fwd.launches_by_variant)
     counts = dict(counts)  # the run's; later calls below are not counted
     calls = counts["prefill_batch"] + counts["decode"]
-    results["main_path_launches"] = launches
+    results["serve_launches"] = {"flash_fwd_sm90": by_variant["sm90"],
+                                 "flash_fwd_fma": by_variant["fma"]}
 
     snap = server.metrics.snapshot()
     assert all(r.error is None for r in reqs), [r.error for r in reqs]
     assert snap["completed"] == len(prompts), snap
     assert server.kv.allocator.num_used == 0, server.kv.allocator.num_used
     assert launches == cfg.n_layers * calls, (launches, calls)
+    # Every prefill (a bucket of >= 16 tokens x 4 query heads per KV head:
+    # >= 64 packed rows) on the tensor-core kernel, every decode on split-KV.
+    assert by_variant == {"sm90": cfg.n_layers * counts["prefill_batch"],
+                          "fma": cfg.n_layers * counts["decode"]}, by_variant
     assert snap["prefix_hit_requests"] >= 1, snap
 
     plain = Llama.from_state_dict(engine.model.cfg, engine.model.state_dict(),
@@ -633,6 +684,7 @@ def phase_serve_llama3_1b(results):
             "decode_steps": counts["decode"],
             "k1_launches": launches,
             "k1_launches_expected": cfg.n_layers * calls,
+            "k1_launches_by_variant": by_variant,
             "prefix_hit_requests": snap["prefix_hit_requests"],
             "last_logits_max_abs_err": worst,
             "logits_tol": LOGITS_TOL_BF16,
@@ -664,14 +716,18 @@ def phase_serve_tiny_fp32(results):
     prompts = [rs.randint(0, cfg.vocab_size, n).tolist()
                for n in (3, 9, 17, 30, 41, 64)]
     server = Server(engine, num_blocks=64, block_size=8)
+    _zero_launch_counts()
     reqs = [server.submit(p, max_new_tokens=12) for p in prompts]
     server.run_until_idle()
+    fma = _launch_counts()["k1_fma"]
+    results["serve_tiny_launches"] = {"flash_fwd_fma": fma}
+    assert fma > 0 and _launch_counts()["k1_sm90"] == 0, _launch_counts()
     params = engine.model.state_dict()
     for p, r in zip(prompts, reqs):
         ref = generate(cfg, params, [p], max_new_tokens=12)[0, len(p):]
         assert r.result(timeout=0) == ref.tolist(), (p, r.tokens, ref)
     assert server.kv.allocator.num_used == 0
-    return {"requests": len(reqs), "identical": True}
+    return {"requests": len(reqs), "identical": True, "k1_fma_launches": fma}
 
 
 # ---- phases 7 and 8: training ------------------------------------------------
@@ -688,11 +744,16 @@ LAUNCHES_PER_LAYER = {"k1": 2, "k2": 1, "k3": 1, "delta": 1}  # full remat
 
 
 def _launch_counts():
+    """Launches per wrapper, and of K1 and K3 per variant."""
     from tpucfn_torch.kernels import flash_attention as fa
 
+    k1 = fa.flash_fwd.launches_by_variant
+    k3 = fa.flash_bwd_dkv.launches_by_variant
     return {"k1": fa.flash_fwd.launches, "k2": fa.flash_bwd_dq.launches,
             "k3": fa.flash_bwd_dkv.launches,
-            "delta": fa.flash_bwd_delta.launches}
+            "delta": fa.flash_bwd_delta.launches,
+            "k1_sm90": k1["sm90"], "k1_fma": k1["fma"],
+            "k3_sm90": k3["sm90"], "k3_fma": k3["fma"]}
 
 
 def _zero_launch_counts():
@@ -701,6 +762,8 @@ def _zero_launch_counts():
     for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
               fa.flash_bwd_delta):
         f.launches = 0
+    for f in (fa.flash_fwd, fa.flash_bwd_dkv):
+        f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
 
 
 def _example_chain(total_steps):
@@ -790,6 +853,9 @@ def phase_train_llama3_1b(results):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
+    # Every K1 and K3 launch of the step on the tensor-core variants.
+    expected.update(k1_sm90=expected["k1"], k1_fma=0,
+                    k3_sm90=expected["k3"], k3_fma=0)
     assert all(c == expected for c in per_step), (per_step, expected)
     assert all(map(math.isfinite, losses)), losses
     assert losses[-1] < losses[0], losses
@@ -849,7 +915,11 @@ def phase_train_tiny_fp32(results):
     assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
     assert all(k_counts[k] == 6 * n * cfg.n_layers
                for k, n in LAUNCHES_PER_LAYER.items()), k_counts
+    # fp32 runs the fma variants of K1 and K3
+    assert (k_counts["k1_fma"], k_counts["k3_fma"]) == (
+        k_counts["k1"], k_counts["k3"]), k_counts
     assert not any(p_counts.values()), p_counts
+    results["train_tiny_launches"] = k_counts
     assert k_losses[-1] < k_losses[0], k_losses
     return {"kernel_losses": k_losses, "plain_losses": p_losses,
             "loss_max_abs_diff": diff, "loss_tol": TINY_LOSS_TOL_FP32,
@@ -861,41 +931,59 @@ KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
 
 
 def _kernels_line(results):
-    """One entry per kernel: launches counted on the main paths (serving
-    and training, each counted from 0 on its own), times at the main
-    path's shape, the worst error over every compared shape."""
-    rows = results["kernel_rows"]
-    main = next(r for r in rows if r["case"] == "decode_llama3_1b")
-    train = results["train_launches"]
-    k1_paths = {"serve_llama3_1b": results["main_path_launches"],
-                "train_llama3_1b": train["k1"]}
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpucfn_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "tpucfn/kernels/flash_attention.py:98",
-        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
-        **{k: main[k] for k in KEYS},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "at": main["case"],
-        "shapes": [{"case": r["case"], **{k: r[k] for k in KEYS}}
-                   for r in rows]}]
+    """One entry per kernel variant: launches counted on the paths that run
+    it (each path counted from 0 on its own), times at its main path's
+    shape, the worst error over every shape it was compared at."""
+    fwd = results["kernel_rows"]
     bwd = results["kernel_bwd_rows"]
-    at = next(r for r in bwd if r["case"] == "train_llama3_1b")
-    for name, key, count, line in (
-            ("flash_bwd_delta", "delta", "delta", 393),
-            ("flash_bwd_dq", "dq", "k2", 248),
-            ("flash_bwd_dkv", "dkv", "k3", 308)):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "tpucfn_torch/kernels/csrc/flash_bwd.cu",
-            "replaces": f"tpucfn/kernels/flash_attention.py:{line}",
-            "launches": train[count],
-            "launches_by_path": {"train_llama3_1b": train[count]},
-            **{k: at[key][k] for k in KEYS},
-            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd),
-            "at": at["case"],
-            "shapes": [{"case": r["case"], **{k: r[key][k] for k in KEYS}}
-                       for r in bwd]})
+    train, tiny = results["train_launches"], results["train_tiny_launches"]
+    serve = results["serve_launches"]
+    serve_tiny = results["serve_tiny_launches"]
+
+    def entry(name, source, replaces, paths, rows, at, key=None):
+        pick = (lambda r: r) if key is None else (lambda r: r[key])
+        main = pick(next(r for r in rows if r["case"] == at))
+        return {"name": name, "route": "cuda",
+                "source": f"tpucfn_torch/kernels/csrc/{source}",
+                "replaces": f"tpucfn/kernels/flash_attention.py:{replaces}",
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                **{k: main[k] for k in KEYS},
+                "max_abs_err": max(pick(r)["max_abs_err"] for r in rows),
+                "at": at,
+                "shapes": [{"case": r["case"], **{k: pick(r)[k] for k in KEYS}}
+                           for r in rows]}
+
+    def of(rows, variant, key=None):
+        return [r for r in rows
+                if (r if key is None else r[key])["variant"] == variant]
+
+    kernels = [
+        entry("flash_fwd_sm90", "flash_fwd_sm90.cu", 98,
+              {"serve_llama3_1b": serve["flash_fwd_sm90"],
+               "train_llama3_1b": train["k1_sm90"]},
+              of(fwd, "sm90"), "train_llama3_1b"),
+        entry("flash_fwd_fma", "flash_fwd.cu", 98,
+              {"serve_llama3_1b": serve["flash_fwd_fma"],
+               "serve_tiny_fp32": serve_tiny["flash_fwd_fma"],
+               "train_tiny_fp32": tiny["k1_fma"]},
+              of(fwd, "fma"), "decode_llama3_1b"),
+        entry("flash_bwd_delta", "flash_bwd.cu", 393,
+              {"train_llama3_1b": train["delta"],
+               "train_tiny_fp32": tiny["delta"]}, bwd, "train_llama3_1b",
+              "delta"),
+        entry("flash_bwd_dq", "flash_bwd.cu", 248,
+              {"train_llama3_1b": train["k2"], "train_tiny_fp32": tiny["k2"]},
+              bwd, "train_llama3_1b", "dq"),
+        entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
+              {"train_llama3_1b": train["k3_sm90"]},
+              of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
+        entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308,
+              {"train_tiny_fp32": tiny["k3_fma"]},
+              of(bwd, "fma", "dkv"), "fp32_d16_gqa2", "dkv"),
+    ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on a path: {idle}")
     return {"kernels": kernels}
 
 
@@ -938,8 +1026,13 @@ def main(argv=None) -> int:
         return 2
     # The card's name and power limit again, near the end of the output,
     # where a reader that keeps only the tail still finds it.
+    try:
+        line = _kernels_line(results)
+    except AssertionError:
+        traceback.print_exc()
+        return 1
     print(results["card"] or "nvidia-smi: no output", flush=True)
-    emit(_kernels_line(results))
+    emit(line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

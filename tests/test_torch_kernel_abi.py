@@ -1,0 +1,131 @@
+"""The port's kernel bindings, checked without a card.
+
+* Every ``ctypes`` signature in ``flash_attention.ARGTYPES`` against the
+  ``extern "C"`` prototype parsed from its ``csrc/<name>.cu``: the same
+  functions, the same arity, ``c_void_p`` for every pointer and the
+  stream (a ``c_int`` would cut a 64-bit address to 32 bits, which only a
+  launch on the card would show).
+* The variant choice of K1 and K3 (tensor-core ``sm90`` or ``fma``) at the
+  serving, training and edge shapes.
+* The build key covers the shared headers, so an edited header rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+
+import pytest
+import torch
+
+from tpucfn_torch.kernels import _build
+from tpucfn_torch.kernels import flash_attention as fa
+
+C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "size_t": ctypes.c_size_t}
+
+
+def _prototypes(name: str) -> dict[str, tuple[str, list[str]]]:
+    """name -> (return type, [parameter types]) of every function defined
+    in the ``extern "C" { ... }`` block of ``csrc/<name>.cu``."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    block = re.sub(r"//[^\n]*", "", block)
+    out = {}
+    for ret, fn, params in re.findall(
+            r"([A-Za-z_][\w\s\*]*?)\s*\b(\w+)\s*\(([^)]*)\)\s*\{", block):
+        types = [re.sub(r"\s*\b\w+$", "", p.strip())
+                 for p in params.split(",") if p.strip()]
+        out[fn] = (ret.strip(), types)
+    return out
+
+
+def _ctype(c_type: str):
+    if "*" in c_type:
+        return ctypes.c_char_p if c_type == "const char*" else ctypes.c_void_p
+    return C_TYPES[c_type.replace("const ", "").strip()]
+
+
+def test_every_source_has_a_signature_table():
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(fa.ARGTYPES)
+
+
+@pytest.mark.parametrize("name", sorted(fa.ARGTYPES))
+def test_argtypes_match_the_c_prototypes(name):
+    protos = _prototypes(name)
+    assert set(protos) == set(fa.ARGTYPES[name]), name
+    for fn, (ret, params) in protos.items():
+        argtypes, restype = fa.ARGTYPES[name][fn]
+        assert len(argtypes) == len(params), (fn, len(argtypes), params)
+        for i, (got, c_type) in enumerate(zip(argtypes, params)):
+            want = ctypes.c_void_p if "*" in c_type else _ctype(c_type)
+            assert got is want, (fn, i, c_type, got)
+        assert restype is _ctype(ret), (fn, ret, restype)
+
+
+@pytest.mark.parametrize("name", sorted(fa.ARGTYPES))
+def test_pointers_and_stream_are_full_width(name):
+    """The last argument of every launcher is the stream, and no pointer
+    argument is bound narrower than a pointer."""
+    for fn, (ret, params) in _prototypes(name).items():
+        argtypes, _ = fa.ARGTYPES[name][fn]
+        if params and params[-1] == "void*":
+            assert argtypes[-1] is ctypes.c_void_p, fn
+        pointers = [t for t, p in zip(argtypes, params) if "*" in p]
+        assert all(ctypes.sizeof(t) == ctypes.sizeof(ctypes.c_void_p)
+                   for t in pointers), fn
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,sq,h,hkv,want", [
+    (BF, 1, 32, 8, "fma"),       # llama3-1b serving decode: 4 packed rows
+    (BF, 16, 32, 8, "sm90"),     # the smallest prefill bucket: 64 rows
+    (BF, 8, 32, 8, "fma"),       # below one 64-row tile
+    (BF, 512, 32, 8, "sm90"),    # prefill 512
+    (BF, 2048, 32, 8, "sm90"),   # llama3-1b training
+    (F32, 2048, 32, 8, "fma"),   # fp32 stays FMA (no TF32)
+    (BF, 64, 4, 2, "sm90"),      # tiny shape in bf16, D=16 GQA 2
+    (BF, 64, 6, 2, "fma"),       # a group of 3 does not divide the tile
+    (BF, 1, 64, 1, "sm90"),      # a group of 64: one position is one tile
+    (BF, 4, 128, 1, "fma"),      # a group of 128 exceeds the tile
+])
+def test_fwd_variant(dtype, sq, h, hkv, want):
+    assert fa.fwd_variant(dtype, sq, h, hkv) == want
+
+
+@pytest.mark.parametrize("dtype,h,hkv,want", [
+    (BF, 32, 8, "sm90"), (BF, 4, 2, "sm90"), (BF, 8, 8, "sm90"),
+    (F32, 32, 8, "fma"), (BF, 6, 2, "fma"), (BF, 128, 1, "fma"),
+])
+def test_dkv_variant(dtype, h, hkv, want):
+    assert fa.dkv_variant(dtype, h, hkv) == want
+
+
+def test_cpu_calls_count_no_launch():
+    """CPU tensors take the plain versions: no counter moves."""
+    rs = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 64, 4, 16, generator=rs).to(BF)
+    k = torch.randn(1, 64, 2, 16, generator=rs).to(BF)
+    before = (fa.flash_fwd.launches, dict(fa.flash_fwd.launches_by_variant),
+              fa.flash_bwd_dkv.launches,
+              dict(fa.flash_bwd_dkv.launches_by_variant))
+    o, lse = fa.flash_fwd(q, k, k)
+    delta = fa.flash_bwd_delta(o, q)
+    fa.flash_bwd_dkv(q, k, k, q, lse, delta)
+    assert (fa.flash_fwd.launches, fa.flash_fwd.launches_by_variant,
+            fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dkv.launches_by_variant) == before
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path("flash_fwd_sm90")
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path("flash_fwd_sm90") != before

@@ -2,10 +2,11 @@
 
 Each source ``csrc/<name>.cu`` has a plain C interface and is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (the
-directory is git-ignored), at first use, keyed on a hash of the source
-and the flags: an edited source rebuilds, an unchanged one loads what is
-there.  Libraries are loaded with ``ctypes``.  Nothing here runs at
-import time — the CPU tests import every module of the package.
+directory is git-ignored), at first use, keyed on a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags: an edited source
+rebuilds, an unchanged one loads what is there.  Libraries are loaded
+with ``ctypes``.  Nothing here runs at import time — the CPU tests import
+every module of the package.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -40,8 +41,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -13,13 +13,15 @@
 //  * flash_bwd_dkv (K3): replaces `_bwd_dkv_kernel`.  Per KV block it
 //    recomputes P and dS the same way and accumulates dV += P^T . dO and
 //    dK += dS^T . Q over every query head of its GQA group and every query
-//    row: four products of length D per live pair.
+//    row: four products of length D per live pair.  This is K3's "fma"
+//    variant, for fp32 and GQA groups that do not divide 64; bf16 runs
+//    the tensor-core kernel in flash_bwd_dkv_sm90.cu.
 //
 // What bounds them on an H100.  At training shapes both are bound by
 // operations: 3 (K2) and 4 (K3) multiply-adds of length D per live pair,
-// against an input of O(S * D) bytes.  This first version does them as
-// fp32 FMA from shared memory (no tensor cores), so it runs far below the
-// card's bf16 rate; mma.sync / wgmma are the later steps.
+// against an input of O(S * D) bytes.  These kernels do them as fp32 FMA
+// from shared memory (no tensor cores), far below the card's bf16 rate;
+// K2 on wgmma, like K3's sm90 variant, is a later step.
 //
 // What the design does about it.
 //  * No sequential grid: K2 is one CTA per (row block, KV head, batch row)

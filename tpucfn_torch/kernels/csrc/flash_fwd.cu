@@ -1,4 +1,7 @@
-// FlashAttention-2 forward for Hopper (sm_90a), plain shared-memory tiles.
+// FlashAttention-2 forward for Hopper (sm_90a), plain shared-memory tiles:
+// K1's "fma" variant, for fp32 and for calls with fewer than 64 packed
+// rows per (batch row, KV head) such as decode.  bf16 calls with more run
+// the tensor-core kernel in flash_fwd_sm90.cu.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // tpucfn/kernels/flash_attention.py (launched by `_flash_fwd`): it
@@ -37,8 +40,8 @@
 //    in the TPU kernel.  Tiles are widened to fp32 as they land in shared
 //    memory; Q and K rows are padded by four floats so the S = QK^T loop
 //    reads them as float4 without bank conflicts.
-//  * Tensor cores (mma.sync / wgmma) and TMA are not used yet: this is
-//    the simple first version of the kernel.
+//  * No tensor cores: fp32 stays fp32 (no TF32), and a decode CTA has a
+//    few rows where a wgmma tile has 64.
 //
 // Layout: q, o are (B, Sq, H, D); k, v are (B, Sk, Hkv, D), all
 // contiguous; lse is (B, H, Sq) fp32; q_offset is int32 (B,); q_seg

@@ -4,16 +4,23 @@
 The kernels are CUDA C++, built with ``nvcc`` for ``sm_90a`` at first use
 and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
 
-* ``csrc/flash_fwd.cu`` — K1, the forward ``_fwd_kernel``; wrapper
-  :func:`flash_fwd`;
+* K1, the forward ``_fwd_kernel`` (wrapper :func:`flash_fwd`), in two
+  variants that :func:`fwd_variant` picks between:
+  ``csrc/flash_fwd_sm90.cu`` ("sm90": wgmma tensor cores fed by TMA) for
+  bf16 with at least 64 packed rows per (batch row, KV head), and
+  ``csrc/flash_fwd.cu`` ("fma": fp32 FMA with split-KV and a combine
+  pass) for fp32 and for decode, whose few rows would leave a 64-row
+  tensor-core tile mostly empty;
 * ``csrc/flash_bwd.cu`` — the backward: Delta = rowsum(dO*O)
   (:func:`flash_bwd_delta`), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`)
-  and K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`); :func:`flash_bwd`
-  runs the three.
+  and K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`) as fp32 FMA; K3 in
+  bf16 runs ``csrc/flash_bwd_dkv_sm90.cu`` instead (:func:`dkv_variant`);
+  :func:`flash_bwd` runs the three.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
-counts the launch in its ``launches`` attribute.  Given CPU tensors it
+counts the launch in its ``launches`` attribute (K1 and K3 also in
+``launches_by_variant``).  Given CPU tensors it
 computes the same function with its plain PyTorch version
 (:func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse` for
 K1, :func:`flash_bwd_plain` for the backward); a CUDA tensor gets the
@@ -30,13 +37,14 @@ so per-slot offsets (the serving engine's cache indices) cost it nothing.
 Such offsets are forward-only, as in the JAX package, whose backward
 takes static offsets.
 
-Block sizes of K1: ``block_q`` rows per CTA — a row is one (query
-position, query head) pair of a KV head's GQA group — and ``block_k``
-keys per KV tile.  Explicit arguments, then ``TPUCFN_FLASH_BLOCK_Q``/
-``_K``, then 64/64.  The JAX package's tuned table holds TPU measurements
-and is not carried over.  The backward kernels tile 64 x 64 (fixed in
-their source).  Padding to a block is never materialized: the kernels
-mask the ragged edge themselves.
+Block sizes of K1's fma variant: ``block_q`` rows per CTA — a row is one
+(query position, query head) pair of a KV head's GQA group — and
+``block_k`` keys per KV tile.  Explicit arguments, then
+``TPUCFN_FLASH_BLOCK_Q``/``_K``, then 64/64.  The JAX package's tuned
+table holds TPU measurements and is not carried over.  The sm90 forward
+tiles 64 rows by 128 keys (64 at D = 128) and the backward kernels 64 x
+64, fixed in their sources.  Padding to a block is never materialized:
+the kernels mask the ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -55,11 +63,13 @@ HEAD_DIMS = (16, 64, 128)  # the kernels' instantiations: tiny, 1B, 8B
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
 MAX_SPLITS = 16  # split-KV CTAs per (q-block, head, row); the combine takes <= 32
+TC_ROWS = 64  # packed rows of one tensor-core (sm90) tile: one wgmma M
 
 __all__ = ["NEG_INF", "flash_attention", "flash_attention_with_lse",
            "flash_bwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_bwd_delta_plain", "flash_bwd_plain",
-           "flash_bwd_plain_from_delta", "flash_fwd"]
+           "flash_bwd_plain_from_delta", "flash_fwd", "fwd_variant",
+           "dkv_variant"]
 
 
 def _block_and_pad(s: int, target: int) -> tuple[int, int]:
@@ -125,24 +135,82 @@ def _plain_fwd(q, k, v, *, causal, q_offset, k_offset, q_seg, kv_seg):
     return o, lse.transpose(1, 2)
 
 
-def _lib():
-    from tpucfn_torch.kernels import _build
+def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
+    """Which K1 kernel a forward of q (B, sq, h, D) over hkv KV heads
+    launches: "sm90" (tensor cores) for bf16 with at least one 64-row tile
+    of packed rows per (batch row, KV head), sq * (h / hkv) >= 64, and a
+    GQA group that divides the tile (TMA loads a tile as a box of
+    64 / group positions x group heads); "fma" (split-KV) otherwise —
+    fp32, and decode, whose few rows would leave a 64-row tile empty."""
+    rep = h // hkv
+    return ("sm90" if dtype == torch.bfloat16 and sq * rep >= TC_ROWS
+            and TC_ROWS % rep == 0 else "fma")
 
-    lib = _build.load("flash_fwd")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
+
+def dkv_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
+    """Which K3 kernel a dK/dV launches: "sm90" for bf16 with a GQA group
+    that divides the 64-row query tile, "fma" otherwise."""
+    return ("sm90" if dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
+            else "fma")
+
+
+# The C entry points of each library (csrc/<name>.cu) as ctypes sees
+# them: name -> (argtypes, restype).  Every pointer and the stream are
+# c_void_p (a c_int would cut them to 32 bits).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ERR = ([_I], ctypes.c_char_p)
+ARGTYPES = {
+    "flash_fwd": {
         # q k v o lse q_offset q_seg kv_seg o_part ml_part;
         # B H Hkv Sq Sk D kv_len k_offset causal; scale;
         # block_q block_k n_split split_tiles is_bf16 device; stream
-        lib.flash_fwd.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float] + [
-            i] * 6 + [p]
-        lib.flash_fwd.restype = i
-        lib.flash_fwd_smem_bytes.argtypes = [i, i, i]
-        lib.flash_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.flash_fwd_error_string.argtypes = [i]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        "flash_fwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 6 + [_P], _I),
+        "flash_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "flash_fwd_error_string": _ERR,
+    },
+    "flash_fwd_sm90": {
+        # q k v o lse q_offset q_seg kv_seg; B H Hkv Sq Sk D k_offset
+        # causal; scale; device; stream
+        "flash_fwd_sm90": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
+        "flash_fwd_sm90_error_string": _ERR,
+    },
+    "flash_bwd": {
+        # o dout delta; B Sq H D; is_bf16 device; stream
+        "flash_bwd_delta": ([_P] * 3 + [_I] * 6 + [_P], _I),
+        # q k v dout lse delta dlse q_seg kv_seg dq; B H Hkv Sq Sk D
+        # q_offset k_offset causal; scale; is_bf16 device; stream
+        # (flash_bwd_dkv: dk dv in place of dq)
+        "flash_bwd_dq": ([_P] * 10 + [_I] * 9 + [_F, _I, _I, _P], _I),
+        "flash_bwd_dkv": ([_P] * 11 + [_I] * 9 + [_F, _I, _I, _P], _I),
+        "flash_bwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+        "flash_bwd_error_string": _ERR,
+    },
+    "flash_bwd_dkv_sm90": {
+        # q k v dout lse delta dlse q_seg kv_seg dk dv; B H Hkv Sq Sk D
+        # q_offset k_offset causal; scale; device; stream
+        "flash_bwd_dkv_sm90": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
+        "flash_bwd_dkv_sm90_error_string": _ERR,
+    },
+}
+
+
+def _lib(name: str = "flash_fwd"):
+    """The library built from ``csrc/<name>.cu``, its functions typed."""
+    from tpucfn_torch.kernels import _build
+
+    lib = _build.load(name)
+    if not getattr(lib, "_typed", False):
+        for fn, (argtypes, restype) in ARGTYPES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._typed = True
     return lib
+
+
+def _raise_on(lib, err, what, library="flash_bwd"):
+    if err != 0:
+        message = getattr(lib, f"{library}_error_string")(err).decode()
+        raise RuntimeError(f"{what} launch failed: {message}")
 
 
 def _check_inputs(q, k, v, q_seg, kv_seg):
@@ -209,9 +277,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The K1 wrapper. q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (o (B,Sq,H,D),
     lse (B,H,Sq) fp32).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise.  ``flash_fwd.launches`` counts one per
-    forward on the card, whether it ran whole or split with its combine
-    pass."""
+    launch the kernel that :func:`fwd_variant` picks, or raise.
+    ``flash_fwd.launches`` counts one per forward on the card (the fma
+    variant's combine pass included), ``launches_by_variant`` the same
+    by variant.  ``block_q``/``block_k`` tile the fma variant only."""
     _check_inputs(q, k, v, q_seg, kv_seg)
     bq, bk = _choose_blocks(block_q, block_k)
     if q.device.type == "cpu":
@@ -233,6 +302,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or sk == 0:  # nothing to launch; rows see no key
         return o.zero_(), lse.fill_(NEG_INF)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = fwd_variant(q.dtype, sq, h, hkv)
+    if variant == "sm90":
+        lib = _lib("flash_fwd_sm90")
+        _raise_on(lib, lib.flash_fwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), q_off.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+            b, h, hkv, sq, sk, d, int(k_offset), int(bool(causal)), d ** -0.5,
+            q.device.index, stream), "flash_fwd", "flash_fwd_sm90")
+    else:
+        _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk,
+                 stream)
+    flash_fwd.launches += 1
+    flash_fwd.launches_by_variant[variant] += 1
+    return o, lse
+
+
+def _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk, stream):
+    """Launches K1's fma variant (``csrc/flash_fwd.cu``), split over the
+    KV walk when its CTAs alone would leave the card idle."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     # A kernel row is one (query position, query head) of a KV head's group.
     rows = sq * (h // hkv)
     bq, _ = _block_and_pad(rows, bq)
@@ -251,57 +342,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              device=q.device)
         ml_part = torch.empty((2, n_split, b, h, sq), dtype=torch.float32,
                               device=q.device)
-    err = lib.flash_fwd(
+    _raise_on(lib, lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), q_off.data_ptr(),
-        segs[0].data_ptr() if segs[0] is not None else None,
-        segs[1].data_ptr() if segs[1] is not None else None,
-        o_part.data_ptr() if o_part is not None else None,
-        ml_part.data_ptr() if ml_part is not None else None,
+        lse.data_ptr(), q_off.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        _ptr(o_part), _ptr(ml_part),
         b, h, hkv, sq, sk, d, sk, int(k_offset), int(bool(causal)),
         d ** -0.5, bq, bk, n_split, split_tiles, int(q.dtype == torch.bfloat16),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_fwd launch failed: "
-                           + lib.flash_fwd_error_string(err).decode())
-    flash_fwd.launches += 1
-    return o, lse
+        q.device.index, stream), "flash_fwd", "flash_fwd")
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_variant = {"sm90": 0, "fma": 0}
 
 # ---- backward --------------------------------------------------------------
-
-
-def _bwd_lib():
-    from tpucfn_torch.kernels import _build
-
-    lib = _build.load("flash_bwd")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # o dout delta; B Sq H D; is_bf16 device; stream
-        lib.flash_bwd_delta.argtypes = [p] * 3 + [i] * 6 + [p]
-        # q k v dout lse delta dlse q_seg kv_seg dq;
-        # B H Hkv Sq Sk D q_offset k_offset causal; scale;
-        # is_bf16 device; stream  (flash_bwd_dkv: dk dv in place of dq)
-        lib.flash_bwd_dq.argtypes = [p] * 10 + [i] * 9 + [
-            ctypes.c_float] + [i] * 2 + [p]
-        lib.flash_bwd_dkv.argtypes = [p] * 11 + [i] * 9 + [
-            ctypes.c_float] + [i] * 2 + [p]
-        for fn in (lib.flash_bwd_delta, lib.flash_bwd_dq, lib.flash_bwd_dkv):
-            fn.restype = i
-        lib.flash_bwd_smem_bytes.argtypes = [i, i]
-        lib.flash_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.flash_bwd_error_string.argtypes = [i]
-        lib.flash_bwd_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
-def _raise_on(lib, err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.flash_bwd_error_string(err).decode())
 
 
 def flash_bwd_delta_plain(o, do):
@@ -369,7 +422,7 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
     if delta.numel() == 0:
         return delta
-    lib = _bwd_lib()
+    lib = _lib("flash_bwd")
     _raise_on(lib, lib.flash_bwd_delta(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, h, d,
         int(o.dtype == torch.bfloat16), o.device.index,
@@ -384,8 +437,9 @@ flash_bwd_delta.launches = 0
 def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
                 k_offset, q_seg, kv_seg):
     """Checks what K2 (which 0) and K3 (which 1) take, allocates their
-    outputs and launches one, counting it in its wrapper's ``launches``;
-    returns (dq,) or (dk, dv).  Empty inputs launch nothing."""
+    outputs and launches one — K3 in the variant :func:`dkv_variant`
+    picks — counting it in its wrapper's ``launches``; returns (dq,) or
+    (dk, dv).  Empty inputs launch nothing."""
     wrapper = (flash_bwd_dq, flash_bwd_dkv)[which]
     name = wrapper.__name__
     _check_inputs(q, k, v, q_seg, kv_seg)
@@ -412,21 +466,29 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
         for t in outs:
             t.zero_()
         return outs
-    lib = _bwd_lib()
-    smem = lib.flash_bwd_smem_bytes(which, d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name} needs {smem} B of shared memory at head "
-                         f"dim {d} (limit {SMEM_LIMIT})")
-    fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
-    _raise_on(lib, fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(segs[0]),
-        _ptr(segs[1]), *(t.data_ptr() for t in outs),
-        b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
-        int(bool(causal)), d ** -0.5, int(q.dtype == torch.bfloat16),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream),
-        name)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(segs[0]),
+            _ptr(segs[1]), *(t.data_ptr() for t in outs),
+            b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
+            int(bool(causal)), d ** -0.5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = "fma" if which == 0 else dkv_variant(q.dtype, h, hkv)
+    if variant == "sm90":
+        lib = _lib("flash_bwd_dkv_sm90")
+        _raise_on(lib, lib.flash_bwd_dkv_sm90(*args, q.device.index, stream),
+                  name, "flash_bwd_dkv_sm90")
+    else:
+        lib = _lib("flash_bwd")
+        smem = lib.flash_bwd_smem_bytes(which, d)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{name} needs {smem} B of shared memory at "
+                             f"head dim {d} (limit {SMEM_LIMIT})")
+        fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
+        _raise_on(lib, fn(*args, int(q.dtype == torch.bfloat16),
+                          q.device.index, stream), name)
     wrapper.launches += 1
+    if which == 1:
+        wrapper.launches_by_variant[variant] += 1
     return outs
 
 
@@ -451,7 +513,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
                   q_offset=0, k_offset=0, q_seg=None, kv_seg=None):
     """The K3 wrapper: (dK, dV) (B, Sk, Hkv, D) in k's and v's dtype, each
     KV head's gradient summed over its group of query heads.  Counts
-    ``flash_bwd_dkv.launches``."""
+    ``flash_bwd_dkv.launches`` and ``launches_by_variant``."""
     if q.device.type == "cpu":
         return flash_bwd_plain_from_delta(
             q, k, v, lse, delta, do, dlse=dlse, causal=causal,
@@ -462,6 +524,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_variant = {"sm90": 0, "fma": 0}
 
 
 def flash_bwd(q, k, v, o, lse, do, *, dlse=None, causal=True, q_offset=0,
