@@ -11,9 +11,9 @@ Phases, each printed as one JSON line:
    just before the ``{"kernels": ...}`` line).
 2. ``build``: compiles every kernel source of the serving and training
    paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu``,
-   ``flash_fwd_sm90.cu``, ``flash_bwd.cu`` and ``flash_bwd_dkv_sm90.cu``)
-   with ``nvcc`` for ``sm_90a``, one process per source, all started
-   together.
+   ``flash_fwd_sm90.cu``, ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu`` and
+   ``flash_bwd_dkv_sm90.cu``) with ``nvcc`` for ``sm_90a``, one process
+   per source, all started together.
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
    decode and prefill), the training path's (2 x 2048, causal) and at
@@ -26,9 +26,10 @@ Phases, each printed as one JSON line:
    (``scaled_dot_product_attention`` with a boolean mask, or
    ``is_causal`` for a plain causal square case: a yardstick only, never
    called by the port), and the roofline bound.
-4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV,
-   variant ``sm90`` in bf16, ``fma`` in fp32 or for a GQA group that
-   does not divide 64) — against the plain backward on the same inputs,
+4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV),
+   K2 and K3 each in variant ``sm90`` in bf16, ``fma`` in fp32 or for a
+   GQA group that does not divide 64 — against the plain backward on the
+   same inputs,
    at the training shape (llama3-1b, B=2, S=2048, bf16) and the edge
    cases (D=16 GQA 2, D=128 with a query offset and a nonzero dLSE, each
    in fp32 and bf16; segment ids, empty rows, non-causal ragged lengths,
@@ -49,8 +50,8 @@ Phases, each printed as one JSON line:
    ``synthetic_tokens`` batch of 2 x 2048 at the full width and depth of
    llama3-1b (random weights from seed 0): finite losses, the last below
    the first, and per step exactly 32 K1 launches (forward and remat
-   recompute), 16 K2, 16 K3 and 16 Delta, every K1 and K3 launch on the
-   ``sm90`` variant; then loss and every gradient
+   recompute), 16 K2, 16 K3 and 16 Delta, every K1, K2 and K3 launch on
+   the ``sm90`` variant; then loss and every gradient
    against the plain attention path (loss within a tolerance, cosine
    >= 0.99), step time, tokens/s, peak memory, model flops over the
    bf16 peak, and a profiled step.
@@ -80,7 +81,8 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
 # tpucfn_torch/kernels/csrc/<name>.cu
-SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_dkv_sm90")
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_dq_sm90",
+           "flash_bwd_dkv_sm90")
 
 # NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -364,7 +366,7 @@ def _bwd_cases(torch):
                                      dtype=bf, k_offset=40)),
         ("non_causal_ragged_d128", dict(b=2, h=8, hkv=8, d=128, sq=200,
                                         sk=300, dtype=bf, causal=False)),
-        # a GQA group of 3 does not divide the 64-row tile: K3 fma in bf16
+        # a GQA group of 3 does not divide the 64-row tile: K2, K3 fma in bf16
         ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
                            q_offset=32)),
     ]
@@ -416,13 +418,17 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
     kw = dict(dlse=dl, causal=causal, q_offset=q_offset, k_offset=k_offset,
               q_seg=q_seg, kv_seg=kv_seg)
     delta = fa.flash_bwd_delta(o, do)
+    wrappers = {"dq": fa.flash_bwd_dq, "dkv": fa.flash_bwd_dkv}
+    before = {n: dict(w.launches_by_variant) for n, w in wrappers.items()}
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    before = dict(fa.flash_bwd_dkv.launches_by_variant)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    (variant,) = [k for k, n in fa.flash_bwd_dkv.launches_by_variant.items()
-                  if n != before[k]]
-    assert variant == fa.dkv_variant(dtype, h, hkv), variant
+    variants = {}
+    for n, w in wrappers.items():
+        (variants[n],) = [k for k, c in w.launches_by_variant.items()
+                          if c != before[n][k]]
+    assert variants == {"dq": fa.dq_variant(dtype, h, hkv),
+                        "dkv": fa.dkv_variant(dtype, h, hkv)}, variants
     ref_delta = fa.flash_bwd_delta_plain(o, do)
     ref = fa.flash_bwd_plain_from_delta(q, k, v, lse, delta, do, **kw)
 
@@ -483,7 +489,8 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
             2 * n_q + 4 * n_kv + 2 * rows + dl_bytes + seg_bytes,
             2 * 4 * d * pairs),
     }
-    rows_out["dkv"]["variant"] = variant
+    for n, variant in variants.items():
+        rows_out[n]["variant"] = variant
     return {"case": label, "shape": dict(
         b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk, dtype=str(dtype), causal=causal,
         q_offset=q_offset, k_offset=k_offset, segments=segments, dlse=dlse),
@@ -496,8 +503,9 @@ def _empty_calls_count_nothing(torch, fa):
     so no wrapper counts it."""
     wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
                 fa.flash_bwd_dkv)
+    by_variant = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     before = [w.launches for w in wrappers] + [
-        dict(w.launches_by_variant) for w in (fa.flash_fwd, fa.flash_bwd_dkv)]
+        dict(w.launches_by_variant) for w in by_variant]
     q = torch.empty(1, 0, 4, 64, dtype=torch.bfloat16, device="cuda")
     kv = torch.randn(1, 16, 2, 64, device="cuda").to(torch.bfloat16)
     rows = torch.empty(1, 4, 0, device="cuda")
@@ -507,8 +515,8 @@ def _empty_calls_count_nothing(torch, fa):
     dk, dv = fa.flash_bwd_dkv(q, kv, kv, q, rows, rows)
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] + [
-        w.launches_by_variant for w in (fa.flash_fwd, fa.flash_bwd_dkv)
-    ] == before, "an empty call counted"
+        w.launches_by_variant for w in by_variant] == before, \
+        "an empty call counted"
     assert not dk.any() and not dv.any(), "dK/dV of no queries must be 0"
 
 
@@ -533,10 +541,11 @@ def phase_kernel_bwd(results):
                              f"backward: {bad}")
     if any(c.launches == n for c, n in zip(counters, before)):
         raise AssertionError("the comparisons never launched a kernel")
-    missing = {"sm90", "fma"} - {r["dkv"]["variant"] for r in rows}
-    if missing:
-        raise AssertionError(f"no comparison launched the {missing} K3 "
-                             "variant")
+    for key, kernel in (("dq", "K2"), ("dkv", "K3")):
+        missing = {"sm90", "fma"} - {r[key]["variant"] for r in rows}
+        if missing:
+            raise AssertionError(f"no comparison launched the {missing} "
+                                 f"{kernel} variant")
     _empty_calls_count_nothing(torch, fa)
     return {"cases": len(rows), "worst_max_abs_err": {
         k: max(r[k]["max_abs_err"] for r in rows)
@@ -744,15 +753,17 @@ LAUNCHES_PER_LAYER = {"k1": 2, "k2": 1, "k3": 1, "delta": 1}  # full remat
 
 
 def _launch_counts():
-    """Launches per wrapper, and of K1 and K3 per variant."""
+    """Launches per wrapper, and of K1, K2 and K3 per variant."""
     from tpucfn_torch.kernels import flash_attention as fa
 
     k1 = fa.flash_fwd.launches_by_variant
+    k2 = fa.flash_bwd_dq.launches_by_variant
     k3 = fa.flash_bwd_dkv.launches_by_variant
     return {"k1": fa.flash_fwd.launches, "k2": fa.flash_bwd_dq.launches,
             "k3": fa.flash_bwd_dkv.launches,
             "delta": fa.flash_bwd_delta.launches,
             "k1_sm90": k1["sm90"], "k1_fma": k1["fma"],
+            "k2_sm90": k2["sm90"], "k2_fma": k2["fma"],
             "k3_sm90": k3["sm90"], "k3_fma": k3["fma"]}
 
 
@@ -762,7 +773,7 @@ def _zero_launch_counts():
     for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
               fa.flash_bwd_delta):
         f.launches = 0
-    for f in (fa.flash_fwd, fa.flash_bwd_dkv):
+    for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
 
 
@@ -853,8 +864,9 @@ def phase_train_llama3_1b(results):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
-    # Every K1 and K3 launch of the step on the tensor-core variants.
+    # Every K1, K2 and K3 launch of the step on the tensor-core variants.
     expected.update(k1_sm90=expected["k1"], k1_fma=0,
+                    k2_sm90=expected["k2"], k2_fma=0,
                     k3_sm90=expected["k3"], k3_fma=0)
     assert all(c == expected for c in per_step), (per_step, expected)
     assert all(map(math.isfinite, losses)), losses
@@ -915,9 +927,9 @@ def phase_train_tiny_fp32(results):
     assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
     assert all(k_counts[k] == 6 * n * cfg.n_layers
                for k, n in LAUNCHES_PER_LAYER.items()), k_counts
-    # fp32 runs the fma variants of K1 and K3
-    assert (k_counts["k1_fma"], k_counts["k3_fma"]) == (
-        k_counts["k1"], k_counts["k3"]), k_counts
+    # fp32 runs the fma variants of K1, K2 and K3
+    assert (k_counts["k1_fma"], k_counts["k2_fma"], k_counts["k3_fma"]) == (
+        k_counts["k1"], k_counts["k2"], k_counts["k3"]), k_counts
     assert not any(p_counts.values()), p_counts
     results["train_tiny_launches"] = k_counts
     assert k_losses[-1] < k_losses[0], k_losses
@@ -971,9 +983,12 @@ def _kernels_line(results):
               {"train_llama3_1b": train["delta"],
                "train_tiny_fp32": tiny["delta"]}, bwd, "train_llama3_1b",
               "delta"),
-        entry("flash_bwd_dq", "flash_bwd.cu", 248,
-              {"train_llama3_1b": train["k2"], "train_tiny_fp32": tiny["k2"]},
-              bwd, "train_llama3_1b", "dq"),
+        entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
+              {"train_llama3_1b": train["k2_sm90"]},
+              of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
+        entry("flash_bwd_dq_fma", "flash_bwd.cu", 248,
+              {"train_tiny_fp32": tiny["k2_fma"]},
+              of(bwd, "fma", "dq"), "fp32_d16_gqa2", "dq"),
         entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
               {"train_llama3_1b": train["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),

@@ -5,8 +5,8 @@
   functions, the same arity, ``c_void_p`` for every pointer and the
   stream (a ``c_int`` would cut a 64-bit address to 32 bits, which only a
   launch on the card would show).
-* The variant choice of K1 and K3 (tensor-core ``sm90`` or ``fma``) at the
-  serving, training and edge shapes.
+* The variant choice of K1, K2 and K3 (tensor-core ``sm90`` or ``fma``)
+  at the serving, training and edge shapes.
 * The build key covers the shared headers, so an edited header rebuilds.
 """
 
@@ -105,20 +105,34 @@ def test_dkv_variant(dtype, h, hkv, want):
     assert fa.dkv_variant(dtype, h, hkv) == want
 
 
+@pytest.mark.parametrize("dtype,h,hkv,want", [
+    (BF, 32, 8, "sm90"),    # llama3-1b training: a group of 4
+    (BF, 4, 2, "sm90"),     # tiny shape in bf16: a group of 2
+    (BF, 8, 8, "sm90"),     # no GQA: a group of 1
+    (F32, 32, 8, "fma"),    # fp32 stays FMA (no TF32)
+    (BF, 6, 2, "fma"),      # a group of 3 does not divide the tile
+    (BF, 128, 1, "fma"),    # a group of 128 exceeds the tile
+])
+def test_dq_variant(dtype, h, hkv, want):
+    assert fa.dq_variant(dtype, h, hkv) == want
+
+
 def test_cpu_calls_count_no_launch():
     """CPU tensors take the plain versions: no counter moves."""
     rs = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 16, generator=rs).to(BF)
     k = torch.randn(1, 64, 2, 16, generator=rs).to(BF)
-    before = (fa.flash_fwd.launches, dict(fa.flash_fwd.launches_by_variant),
-              fa.flash_bwd_dkv.launches,
-              dict(fa.flash_bwd_dkv.launches_by_variant))
+    wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    by_variant = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = ([w.launches for w in wrappers],
+              [dict(w.launches_by_variant) for w in by_variant])
     o, lse = fa.flash_fwd(q, k, k)
     delta = fa.flash_bwd_delta(o, q)
+    fa.flash_bwd_dq(q, k, k, q, lse, delta)
     fa.flash_bwd_dkv(q, k, k, q, lse, delta)
-    assert (fa.flash_fwd.launches, fa.flash_fwd.launches_by_variant,
-            fa.flash_bwd_dkv.launches,
-            fa.flash_bwd_dkv.launches_by_variant) == before
+    assert ([w.launches for w in wrappers],
+            [w.launches_by_variant for w in by_variant]) == before
 
 
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):

@@ -9,7 +9,9 @@
 //  * flash_bwd_dq (K2): replaces the Pallas TPU kernel `_bwd_dq_kernel`.
 //    For each live (query, key) pair it recomputes P = exp(S - LSE), forms
 //    dP = dO . V, dS = P * (dP - Delta [+ dLSE]) * scale, and accumulates
-//    dQ += dS . K: three products of length D per live pair.
+//    dQ += dS . K: three products of length D per live pair.  This is K2's
+//    "fma" variant, for fp32 and GQA groups that do not divide 64; bf16
+//    runs the tensor-core kernel in flash_bwd_dq_sm90.cu.
 //  * flash_bwd_dkv (K3): replaces `_bwd_dkv_kernel`.  Per KV block it
 //    recomputes P and dS the same way and accumulates dV += P^T . dO and
 //    dK += dS^T . Q over every query head of its GQA group and every query
@@ -21,7 +23,7 @@
 // operations: 3 (K2) and 4 (K3) multiply-adds of length D per live pair,
 // against an input of O(S * D) bytes.  These kernels do them as fp32 FMA
 // from shared memory (no tensor cores), far below the card's bf16 rate;
-// K2 on wgmma, like K3's sm90 variant, is a later step.
+// in bf16 both run on wgmma instead (the sm90 variants).
 //
 // What the design does about it.
 //  * No sequential grid: K2 is one CTA per (row block, KV head, batch row)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): TMA tensor maps and loads,
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu): TMA
+// tensor maps and loads,
 // mbarriers, and warpgroup matrix multiplies (wgmma) with their shared
 // memory descriptors.  Plain inline PTX; no CUTLASS.
 //

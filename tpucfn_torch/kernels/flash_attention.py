@@ -11,15 +11,18 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
   ``csrc/flash_fwd.cu`` ("fma": fp32 FMA with split-KV and a combine
   pass) for fp32 and for decode, whose few rows would leave a 64-row
   tensor-core tile mostly empty;
-* ``csrc/flash_bwd.cu`` — the backward: Delta = rowsum(dO*O)
-  (:func:`flash_bwd_delta`), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`)
-  and K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`) as fp32 FMA; K3 in
-  bf16 runs ``csrc/flash_bwd_dkv_sm90.cu`` instead (:func:`dkv_variant`);
+* the backward: Delta = rowsum(dO*O) (:func:`flash_bwd_delta`,
+  ``csrc/flash_bwd.cu``), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`) and
+  K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`), each in two variants
+  that :func:`dq_variant` and :func:`dkv_variant` (one rule) pick
+  between: ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``
+  ("sm90": wgmma fed by TMA) for bf16 with a GQA group that divides 64,
+  and the fp32 FMA kernels of ``csrc/flash_bwd.cu`` ("fma") otherwise;
   :func:`flash_bwd` runs the three.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
-counts the launch in its ``launches`` attribute (K1 and K3 also in
+counts the launch in its ``launches`` attribute (K1, K2 and K3 also in
 ``launches_by_variant``).  Given CPU tensors it
 computes the same function with its plain PyTorch version
 (:func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse` for
@@ -69,7 +72,7 @@ __all__ = ["NEG_INF", "flash_attention", "flash_attention_with_lse",
            "flash_bwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_bwd_delta_plain", "flash_bwd_plain",
            "flash_bwd_plain_from_delta", "flash_fwd", "fwd_variant",
-           "dkv_variant"]
+           "dq_variant", "dkv_variant"]
 
 
 def _block_and_pad(s: int, target: int) -> tuple[int, int]:
@@ -148,10 +151,14 @@ def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
 
 
 def dkv_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
-    """Which K3 kernel a dK/dV launches: "sm90" for bf16 with a GQA group
-    that divides the 64-row query tile, "fma" otherwise."""
+    """Which K3 (dK/dV) kernel a backward launches, and which K2 (dQ):
+    "sm90" for bf16 with a GQA group that divides the 64-row query tile,
+    "fma" otherwise."""
     return ("sm90" if dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
             else "fma")
+
+
+dq_variant = dkv_variant  # K2 follows K3's rule
 
 
 # The C entry points of each library (csrc/<name>.cu) as ctypes sees
@@ -184,6 +191,12 @@ ARGTYPES = {
         "flash_bwd_dkv": ([_P] * 11 + [_I] * 9 + [_F, _I, _I, _P], _I),
         "flash_bwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
         "flash_bwd_error_string": _ERR,
+    },
+    "flash_bwd_dq_sm90": {
+        # q k v dout lse delta dlse q_seg kv_seg dq; B H Hkv Sq Sk D
+        # q_offset k_offset causal; scale; device; stream
+        "flash_bwd_dq_sm90": ([_P] * 10 + [_I] * 9 + [_F, _I, _P], _I),
+        "flash_bwd_dq_sm90_error_string": _ERR,
     },
     "flash_bwd_dkv_sm90": {
         # q k v dout lse delta dlse q_seg kv_seg dk dv; B H Hkv Sq Sk D
@@ -437,9 +450,9 @@ flash_bwd_delta.launches = 0
 def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
                 k_offset, q_seg, kv_seg):
     """Checks what K2 (which 0) and K3 (which 1) take, allocates their
-    outputs and launches one — K3 in the variant :func:`dkv_variant`
-    picks — counting it in its wrapper's ``launches``; returns (dq,) or
-    (dk, dv).  Empty inputs launch nothing."""
+    outputs and launches one in the variant :func:`dkv_variant` picks,
+    counting it in its wrapper's ``launches`` and ``launches_by_variant``;
+    returns (dq,) or (dk, dv).  Empty inputs launch nothing."""
     wrapper = (flash_bwd_dq, flash_bwd_dkv)[which]
     name = wrapper.__name__
     _check_inputs(q, k, v, q_seg, kv_seg)
@@ -472,11 +485,12 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
             b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
             int(bool(causal)), d ** -0.5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    variant = "fma" if which == 0 else dkv_variant(q.dtype, h, hkv)
+    variant = dkv_variant(q.dtype, h, hkv)
     if variant == "sm90":
-        lib = _lib("flash_bwd_dkv_sm90")
-        _raise_on(lib, lib.flash_bwd_dkv_sm90(*args, q.device.index, stream),
-                  name, "flash_bwd_dkv_sm90")
+        library = f"{name}_sm90"
+        lib = _lib(library)
+        _raise_on(lib, getattr(lib, library)(*args, q.device.index, stream),
+                  name, library)
     else:
         lib = _lib("flash_bwd")
         smem = lib.flash_bwd_smem_bytes(which, d)
@@ -487,15 +501,15 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
         _raise_on(lib, fn(*args, int(q.dtype == torch.bfloat16),
                           q.device.index, stream), name)
     wrapper.launches += 1
-    if which == 1:
-        wrapper.launches_by_variant[variant] += 1
+    wrapper.launches_by_variant[variant] += 1
     return outs
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, dlse=None, causal=True,
                  q_offset=0, k_offset=0, q_seg=None, kv_seg=None):
     """The K2 wrapper: dQ (B, Sq, H, D) in q's dtype.  ``lse``, ``delta``
-    and ``dlse`` are fp32 (B, H, Sq).  Counts ``flash_bwd_dq.launches``."""
+    and ``dlse`` are fp32 (B, H, Sq).  Counts ``flash_bwd_dq.launches``
+    and ``launches_by_variant``."""
     if q.device.type == "cpu":
         return flash_bwd_plain_from_delta(
             q, k, v, lse, delta, do, dlse=dlse, causal=causal,
@@ -507,6 +521,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_variant = {"sm90": 0, "fma": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
