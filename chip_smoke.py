@@ -11,21 +11,31 @@ Phases, each printed as one JSON line:
    just before the ``{"kernels": ...}`` line).
 2. ``build``: compiles every kernel source of the serving and training
    paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu``,
-   ``flash_fwd_sm90.cu``, ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu`` and
+   ``flash_fwd_sm90.cu``, ``flash_fwd_decode_sm90.cu``,
+   ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu`` and
    ``flash_bwd_dkv_sm90.cu``) with ``nvcc`` for ``sm_90a``, one process
    per source, all started together.
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
-   decode and prefill), the training path's (2 x 2048, causal) and at
-   the edge cases (D=16/GQA and ragged D=128 with offsets, in fp32 and
-   bf16; empty rows, segment ids, non-causal; a GQA group of 3); each
-   row names the variant that ran (``sm90``: wgmma tensor cores, bf16
-   with at least 64 packed rows; ``fma``: split-KV, fp32 and decode);
-   error, tolerance, times of the kernel, the
+   decode and prefill), the training path's (2 x 2048, causal), the
+   decode variant's edge cases (llama3-8b width over an 8192-key cache,
+   a GQA group of 3, D=16, segment ids, empty rows, non-causal, 4
+   positions x GQA 4) and the other edge cases (D=16/GQA and ragged
+   D=128 with offsets, in fp32 and bf16; empty rows, segment ids,
+   non-causal; a GQA group of 3); each row names the variant that ran
+   (``sm90``: wgmma tensor cores, bf16 with at least 64 packed rows;
+   ``decode``: mma.sync, bf16 with at most 16; ``fma``: split-KV, fp32
+   and bf16 in between); error, tolerance, times of the kernel, the
    plain version and one PyTorch library call
    (``scaled_dot_product_attention`` with a boolean mask, or
    ``is_causal`` for a plain causal square case: a yardstick only, never
-   called by the port), and the roofline bound.
+   called by the port), the roofline bound and the host time of one
+   call (no synchronise).  At the llama3-1b decode shape the fma kernel
+   is timed on the same inputs beside the decode variant.  Then one
+   decode launch is captured in a ``torch.cuda.CUDAGraph``, the offsets,
+   the query and the cache are changed in place, and the replay is held
+   against the plain version (a replay is not a wrapper call and counts
+   no launch).
 4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV),
    K2 and K3 each in variant ``sm90`` in bf16, ``fma`` in fp32 or for a
    GQA group that does not divide 64 — against the plain backward on the
@@ -40,8 +50,10 @@ Phases, each printed as one JSON line:
 5. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
    full width and depth of llama3-1b (random weights from a seed) answers
    8 requests; every request completes, no KV block leaks, the kernel ran
-   on every layer of every prefill (``sm90``) and decode (``fma``) call,
-   and teacher-forced logits agree with the plain attention path.
+   on every layer of every prefill (``sm90``) and decode (``decode``)
+   call, none on ``fma``, and teacher-forced logits agree with the plain
+   attention path; a profiled decode step reports the decode kernel's
+   device time.
 6. ``serve_tiny_fp32``: the tiny preset in fp32; the engine's greedy
    tokens (kernel) equal ``generate``'s (plain attention).
 7. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
@@ -81,17 +93,18 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
 # tpucfn_torch/kernels/csrc/<name>.cu
-SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_dq_sm90",
-           "flash_bwd_dkv_sm90")
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90", "flash_bwd",
+           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 
 # NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 # K1 against its plain version.  bf16: both round P to bf16 before the PV
-# product (the plain version as the JAX dense path does, the sm90 kernel
-# as the A operand of its wgmma, though of exp(S - running max) rather
-# than of the normalized P) while the fma kernel keeps P in fp32, so O
+# product (the plain version as the JAX dense path does, the sm90 and
+# decode kernels as the A operand of their products, though of
+# exp(S - running max) rather than of the normalized P) while the fma
+# kernel keeps P in fp32, so O
 # differs by up to ~2^-9 * max|v| plus the output's own bf16 rounding;
 # LSE is fp32 on both sides (sum order only).  fp32: sum order only.
 TOL = {"torch.bfloat16": {"o": 2e-2, "lse": 1e-3},
@@ -99,6 +112,10 @@ TOL = {"torch.bfloat16": {"o": 2e-2, "lse": 1e-3},
 # Teacher-forced llama3-1b logits, kernel path vs plain path (bf16): the
 # P rounding above, carried through 16 layers of bf16 activations.
 LOGITS_TOL_BF16 = 0.25
+# The serving phase's requests: prompt lengths, then two prompts of a
+# shared 64-token prefix and their own tails, and tokens generated each.
+SERVE_LENGTHS, SERVE_SHARED, SERVE_TAILS = (16, 48, 100, 200, 333, 512), 64, (40, 150)
+SERVE_MAX_NEW = 32
 
 
 def emit(obj) -> None:
@@ -156,11 +173,13 @@ def phase_build():
 class Timer:
     """Mean device time of one call in ms: CUDA events around each call,
     with the L2 cache flushed before each (a serving layer meets its K/V
-    cold).  The calls are queued behind a sleeping kernel, so the events
-    time the device's work and not the host's Python around the launch."""
+    cold) by writing 64 MB, which leaves L2 full of dirty lines; ``clean``
+    flushes by reading them instead.  The calls are queued behind a
+    sleeping kernel, so the events time the device's work and not the
+    host's Python around the launch."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, clean=False):
+        self.torch, self.clean = torch, clean
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn, iters=30, warmup=3):
@@ -172,7 +191,10 @@ class Timer:
                   torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         torch.cuda._sleep(100_000_000)  # ~50 ms: the host queues meanwhile
         for a, b in marks:
-            self.flush.zero_()
+            if self.clean:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             a.record()
             fn()
             b.record()
@@ -180,14 +202,40 @@ class Timer:
         return sum(a.elapsed_time(b) for a, b in marks) / iters
 
 
+def _spread(n, top):
+    """n offsets spread evenly over 0..top, both ends included."""
+    return [round(i * top / (n - 1)) for i in range(n)]
+
+
 def _kernel_cases(torch):
     """(label, kwargs for the inputs) at the serving and training paths'
     shapes and the edge cases."""
     bf, f32 = torch.bfloat16, torch.float32
     sk = 2048  # llama3-1b serving cache_len
-    decode_off = [int(x) for x in torch.linspace(0, sk - 1, 8)]
+    decode_off = _spread(8, sk - 1)
     cases = [("decode_llama3_1b", dict(b=8, h=32, hkv=8, d=64, sq=1, sk=sk,
-                                       dtype=bf, q_offset=decode_off))]
+                                       dtype=bf, q_offset=decode_off)),
+             # the decode variant at llama3-8b's width over an 8192-key cache
+             ("decode_llama3_8b", dict(b=8, h=32, hkv=8, d=128, sq=1,
+                                       sk=8192, dtype=bf,
+                                       q_offset=_spread(8, 8191))),
+             ("decode_gqa3", dict(b=4, h=6, hkv=2, d=64, sq=1, sk=512,
+                                  dtype=bf, q_offset=_spread(4, 511))),
+             ("decode_d16", dict(b=4, h=4, hkv=2, d=16, sq=1, sk=128,
+                                 dtype=bf, q_offset=_spread(4, 127))),
+             ("decode_segment_ids", dict(b=8, h=32, hkv=8, d=64, sq=1,
+                                         sk=sk, dtype=bf, q_offset=decode_off,
+                                         segments=True)),
+             # k_offset past three rows' query: O = 0, LSE = NEG_INF there
+             ("decode_empty_rows", dict(b=4, h=32, hkv=8, d=64, sq=1, sk=256,
+                                        dtype=bf, q_offset=[0, 10, 50, 200],
+                                        k_offset=60)),
+             ("decode_non_causal", dict(b=4, h=32, hkv=8, d=64, sq=1,
+                                        sk=1000, dtype=bf,
+                                        q_offset=[0, 0, 0, 0], causal=False)),
+             # 4 positions x a group of 4: 16 packed rows, one mma tile
+             ("decode_sq4_gqa4", dict(b=8, h=32, hkv=8, d=64, sq=4, sk=sk,
+                                      dtype=bf, q_offset=_spread(8, sk - 4)))]
     for sq in (16, 128, 512):
         cases.append((f"prefill_llama3_1b_sq{sq}",
                       dict(b=4, h=32, hkv=8, d=64, sq=sq, sk=sk, dtype=bf,
@@ -233,9 +281,9 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
     q_off = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
     q_seg = kv_seg = mask = None
-    if segments:
-        q_seg = (torch.arange(sq, device="cuda") // 48).int()[None].expand(b, sq).contiguous()
-        kv_seg = (torch.arange(sk, device="cuda") // 48).int()[None].expand(b, sk).contiguous()
+    if segments:  # documents of 48 positions, by global position
+        q_seg = ((q_off[:, None] + torch.arange(sq, device="cuda")) // 48).int()
+        kv_seg = ((torch.arange(sk, device="cuda") + k_offset) // 48).int()[None].expand(b, sk).contiguous()
         mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
 
     def kernel():
@@ -289,6 +337,7 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     ms = timer(kernel)
     plain_ms = timer(plain)
     library_ms = timer(library)
+    host_us = _host_us(torch, kernel)
     esize = torch.finfo(dtype).bits // 8
     keys_needed = live.any(1).sum(-1)  # (B,) keys any query row of b sees
     bytes_ = (q.numel() * esize * 2                       # q in, o out
@@ -307,7 +356,135 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": bytes_, "flops": flops}
+            "bytes": bytes_, "flops": flops, "host_us": host_us}
+
+
+def _host_us(torch, fn, calls=50):
+    """Host time of one call in microseconds: ``calls`` calls back to
+    back with no synchronise between them (the enqueue, which is what a
+    host-bound decode step pays), after a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _decode_fma_beside(torch, timer):
+    """K1's fma kernel (the decode path before the decode variant) and the
+    decode variant on the same llama3-1b decode inputs, both through
+    ``flash_fwd`` (the variant rule overridden for the call), timed in
+    turns (fma, decode, decode, fma): device ms and host us of each, and
+    the largest difference between their outputs."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    b, h, hkv, d, sk = 8, 32, 8, 64, 2048
+    g = torch.Generator("cuda").manual_seed(7)
+    q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+    q_off = torch.tensor(_spread(b, sk - 1), dtype=torch.int32, device="cuda")
+
+    def call():
+        return fa.flash_fwd(q, k, v, q_offset=q_off)[0]
+
+    out, rule = {}, fa.fwd_variant
+    for variant in ("fma", "decode", "decode", "fma"):
+        fa.fwd_variant = lambda *a, _v=variant: _v
+        try:
+            out.setdefault(variant, []).append(
+                (timer(call), _host_us(torch, call), call().float()))
+        finally:
+            fa.fwd_variant = rule
+    return {f"{v}_{key}": [r[i] for r in out[v]]
+            for v in out for i, key in ((0, "ms"), (1, "host_us"))} | {
+        "o_max_abs_diff": (out["fma"][0][2] - out["decode"][0][2])
+        .abs().max().item()}
+
+
+def _decode_chunking(torch, timer):
+    """Where the decode variant's time goes at llama3-1b's width (B=8,
+    H=32, Hkv=8, D=64 over a 2048-key cache), by offsets: every row at
+    one key, spread (``decode_llama3_1b``'s), the serving phase's mix (each
+    request's prompt plus half its new tokens) and the full cache.  Each
+    mix with the cache cut into 8 and 4 chunks (``DECODE_CLUSTER``, the
+    planner's constant, set for the call) in turns (8, 4, 4, 8), and once
+    with a clean L2; beside the timer's floor (a 4-byte memset between the
+    same events)."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    b, h, hkv, d, sk = 8, 32, 8, 64, 2048
+    g = torch.Generator("cuda").manual_seed(5)
+    q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+    serve = [n + SERVE_MAX_NEW // 2 for n in SERVE_LENGTHS] + [
+        SERVE_SHARED + n + SERVE_MAX_NEW // 2 for n in SERVE_TAILS]
+    mixes = {"one_key": [0] * b, "spread": _spread(b, sk - 1),
+             "serve": serve, "full": [sk - 1] * b}
+    tiny = torch.empty(1, dtype=torch.int32, device="cuda")
+    out, chosen = {"timer_floor_ms": timer(tiny.zero_)}, fa.DECODE_CLUSTER
+    clean = Timer(torch, clean=True)
+    for name, offsets in mixes.items():
+        q_off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+        row = {"offsets": offsets, "kv_bytes": (sum(offsets) + b) * hkv * d * 4}
+        for n in (chosen, 4, 4, chosen):
+            fa.DECODE_CLUSTER = n
+            try:
+                ms = timer(lambda: fa.flash_fwd(q, k, v, q_offset=q_off))
+            finally:
+                fa.DECODE_CLUSTER = chosen
+            row.setdefault(f"ms_{n}_chunks", []).append(ms)
+        row["ms_clean_l2"] = clean(lambda: fa.flash_fwd(q, k, v, q_offset=q_off))
+        out[name] = row
+    return out
+
+
+def _decode_graph_check(torch):
+    """One decode launch captured in a CUDA graph; the offsets, the query
+    and the cache then change in place and the replay must match the
+    plain version on the new values: the launch reads no device data on
+    the host and its grid does not depend on the live lengths."""
+    from tpucfn_torch.kernels import flash_attention as fa
+    from tpucfn_torch.ops.attention import dot_product_attention_with_lse
+
+    b, h, hkv, d, sk = 8, 32, 8, 64, 2048
+    g = torch.Generator("cuda").manual_seed(11)
+
+    def fill(t):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+
+    q = torch.empty(b, 1, h, d, dtype=torch.bfloat16, device="cuda")
+    k = torch.empty(b, sk, hkv, d, dtype=torch.bfloat16, device="cuda")
+    v = torch.empty_like(k)
+    for t in (q, k, v):
+        fill(t)
+    q_off = torch.tensor([3, 100, 700, 5, 2047, 64, 1000, 0],
+                         dtype=torch.int32, device="cuda")
+    fa.flash_fwd(q, k, v, q_offset=q_off)  # outside the capture: loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = fa.flash_fwd(q, k, v, q_offset=q_off)
+    errs = []
+    for offsets in ([2047, 0, 64, 1500, 3, 1999, 128, 640],
+                    [1, 2, 3, 4, 2044, 2045, 2046, 2047]):
+        q_off.copy_(torch.tensor(offsets, dtype=torch.int32))
+        for t in (q, k, v):
+            fill(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        ro, rlse = dot_product_attention_with_lse(q, k, v, q_offset=q_off)
+        errs.append(((o.float() - ro.float()).abs().max().item(),
+                     (lse - rlse.transpose(1, 2)).abs().max().item()))
+    tol = TOL["torch.bfloat16"]
+    ok = all(eo <= tol["o"] and el <= tol["lse"] for eo, el in errs)
+    return {"ok": ok, "replays": len(errs),
+            "max_abs_err": max(e[0] for e in errs),
+            "lse_max_abs_err": max(e[1] for e in errs), "tol": tol}
 
 
 def phase_kernel(results):
@@ -325,11 +502,18 @@ def phase_kernel(results):
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    missing = {"sm90", "fma"} - {r["variant"] for r in rows}
+    missing = {"sm90", "fma", "decode"} - {r["variant"] for r in rows}
     if missing:
         raise AssertionError(f"no comparison launched the {missing} variant")
+    beside = _decode_fma_beside(torch, timer)
+    chunking = _decode_chunking(torch, timer)
+    graph = _decode_graph_check(torch)
+    if not graph["ok"]:
+        raise AssertionError(f"the replayed decode graph disagrees: {graph}")
     return {"cases": len(rows),
-            "worst_max_abs_err": max(r["max_abs_err"] for r in rows)}
+            "worst_max_abs_err": max(r["max_abs_err"] for r in rows),
+            "decode_llama3_1b_fma_beside": beside,
+            "decode_chunking": chunking, "decode_graph": graph}
 
 
 # ---- phase 4: the backward kernels -----------------------------------------
@@ -510,6 +694,10 @@ def _empty_calls_count_nothing(torch, fa):
     kv = torch.randn(1, 16, 2, 64, device="cuda").to(torch.bfloat16)
     rows = torch.empty(1, 4, 0, device="cuda")
     fa.flash_fwd(q, kv, kv)
+    # a decode-shaped query over an empty cache: O = 0, LSE = NEG_INF
+    o, lse = fa.flash_fwd(torch.ones(1, 1, 4, 64, dtype=torch.bfloat16,
+                                     device="cuda"), kv[:, :0], kv[:, :0])
+    assert not o.any() and bool((lse == fa.NEG_INF).all())
     fa.flash_bwd_delta(q, q)
     fa.flash_bwd_dq(q, kv, kv, q, rows, rows)
     dk, dv = fa.flash_bwd_dkv(q, kv, kv, q, rows, rows)
@@ -579,10 +767,12 @@ def _teacher_forced_logits(torch, model, prompt, out):
         return model.logits(hidden[0, len(prompt) - 1:])
 
 
-def _profile(torch, fn, steps):
+def _profile(torch, fn, steps, kernel=None):
     """Host wall time and device kernel time per call of ``fn`` over a
     short profiled window (torch.profiler with CUDA activity); the device
-    busy share is kernel time over wall time (one stream, no overlap)."""
+    busy share is kernel time over wall time (one stream, no overlap).
+    ``kernel``: a name whose kernels' device ms per call is reported
+    apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -602,7 +792,10 @@ def _profile(torch, fn, steps):
                and not getattr(r, "is_user_annotation", False)]
     device_ms = sum(r.self_device_time_total for r in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:12]
-    return {"wall_ms": wall_ms,
+    named = {} if kernel is None else {
+        f"{kernel}_device_ms": sum(r.self_device_time_total for r in kernels
+                                   if kernel in r.key) / 1e3 / steps}
+    return {**named, "wall_ms": wall_ms,
             "device_ms": device_ms if kernels else "not measured",
             "device_busy_share": device_ms / wall_ms if kernels else None,
             "kernels_per_call": sum(r.count for r in kernels) / steps,
@@ -619,7 +812,7 @@ def phase_serve_llama3_1b(results):
     from tpucfn_torch.serve import Server
     from tpucfn_torch.serve.engine import demo_llama_engine
 
-    cache_len, max_new = 2048, 32
+    cache_len, max_new = 2048, SERVE_MAX_NEW
     cfg, engine = demo_llama_engine("llama3-1b", seed=0, max_batch=8,
                                     cache_len=cache_len, prefill_width=4,
                                     device="cuda")
@@ -627,11 +820,10 @@ def phase_serve_llama3_1b(results):
             cfg.head_dim, cfg.ffn_dim, cfg.vocab_size) == \
         (2048, 16, 32, 8, 64, 8192, 128256), cfg
     rs = np.random.RandomState(0)
-    shared = rs.randint(0, cfg.vocab_size, 64).tolist()
-    lengths = [16, 48, 100, 200, 333, 512]
-    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
+    shared = rs.randint(0, cfg.vocab_size, SERVE_SHARED).tolist()
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in SERVE_LENGTHS]
     prompts += [shared + rs.randint(0, cfg.vocab_size, n).tolist()
-                for n in (40, 150)]
+                for n in SERVE_TAILS]
 
     # Warm-up (cuBLAS handles, the kernel library): one short request on a
     # throwaway Server over the same engine.
@@ -653,7 +845,7 @@ def phase_serve_llama3_1b(results):
     counts = dict(counts)  # the run's; later calls below are not counted
     calls = counts["prefill_batch"] + counts["decode"]
     results["serve_launches"] = {"flash_fwd_sm90": by_variant["sm90"],
-                                 "flash_fwd_fma": by_variant["fma"]}
+                                 "flash_fwd_decode_sm90": by_variant["decode"]}
 
     snap = server.metrics.snapshot()
     assert all(r.error is None for r in reqs), [r.error for r in reqs]
@@ -661,9 +853,11 @@ def phase_serve_llama3_1b(results):
     assert server.kv.allocator.num_used == 0, server.kv.allocator.num_used
     assert launches == cfg.n_layers * calls, (launches, calls)
     # Every prefill (a bucket of >= 16 tokens x 4 query heads per KV head:
-    # >= 64 packed rows) on the tensor-core kernel, every decode on split-KV.
+    # >= 64 packed rows) on the wgmma kernel, every decode (1 token x 4
+    # heads: 4 rows) on the decode variant, none on fma.
     assert by_variant == {"sm90": cfg.n_layers * counts["prefill_batch"],
-                          "fma": cfg.n_layers * counts["decode"]}, by_variant
+                          "decode": cfg.n_layers * counts["decode"],
+                          "fma": 0}, by_variant
     assert snap["prefix_hit_requests"] >= 1, snap
 
     plain = Llama.from_state_dict(engine.model.cfg, engine.model.state_dict(),
@@ -683,7 +877,8 @@ def phase_serve_llama3_1b(results):
     # Where the time goes: a decode step over all 8 slots, and a full-width
     # prefill call (4 lanes x 512 tokens), profiled after the run.
     profile_decode = _profile(
-        torch, lambda: engine.decode({s: 1 for s in range(8)}), 6)
+        torch, lambda: engine.decode({s: 1 for s in range(8)}), 6,
+        kernel="flash_fwd_decode")
     long_prompts = [(s, prompts[5], 0, 0.0) for s in range(4)]
     profile_prefill = _profile(
         torch, lambda: engine.prefill_batch(long_prompts, 512), 2)
@@ -730,7 +925,8 @@ def phase_serve_tiny_fp32(results):
     server.run_until_idle()
     fma = _launch_counts()["k1_fma"]
     results["serve_tiny_launches"] = {"flash_fwd_fma": fma}
-    assert fma > 0 and _launch_counts()["k1_sm90"] == 0, _launch_counts()
+    assert fma > 0 and _launch_counts()["k1_sm90"] == 0 \
+        and _launch_counts()["k1_decode"] == 0, _launch_counts()
     params = engine.model.state_dict()
     for p, r in zip(prompts, reqs):
         ref = generate(cfg, params, [p], max_new_tokens=12)[0, len(p):]
@@ -762,7 +958,8 @@ def _launch_counts():
     return {"k1": fa.flash_fwd.launches, "k2": fa.flash_bwd_dq.launches,
             "k3": fa.flash_bwd_dkv.launches,
             "delta": fa.flash_bwd_delta.launches,
-            "k1_sm90": k1["sm90"], "k1_fma": k1["fma"],
+            "k1_sm90": k1["sm90"], "k1_decode": k1["decode"],
+            "k1_fma": k1["fma"],
             "k2_sm90": k2["sm90"], "k2_fma": k2["fma"],
             "k3_sm90": k3["sm90"], "k3_fma": k3["fma"]}
 
@@ -865,7 +1062,7 @@ def phase_train_llama3_1b(results):
 
     expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
     # Every K1, K2 and K3 launch of the step on the tensor-core variants.
-    expected.update(k1_sm90=expected["k1"], k1_fma=0,
+    expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_fma=0,
                     k2_sm90=expected["k2"], k2_fma=0,
                     k3_sm90=expected["k3"], k3_fma=0)
     assert all(c == expected for c in per_step), (per_step, expected)
@@ -974,11 +1171,13 @@ def _kernels_line(results):
               {"serve_llama3_1b": serve["flash_fwd_sm90"],
                "train_llama3_1b": train["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
+        entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
+              {"serve_llama3_1b": serve["flash_fwd_decode_sm90"]},
+              of(fwd, "decode"), "decode_llama3_1b"),
         entry("flash_fwd_fma", "flash_fwd.cu", 98,
-              {"serve_llama3_1b": serve["flash_fwd_fma"],
-               "serve_tiny_fp32": serve_tiny["flash_fwd_fma"],
+              {"serve_tiny_fp32": serve_tiny["flash_fwd_fma"],
                "train_tiny_fp32": tiny["k1_fma"]},
-              of(fwd, "fma"), "decode_llama3_1b"),
+              of(fwd, "fma"), "tiny_fp32_d16_gqa2"),
         entry("flash_bwd_delta", "flash_bwd.cu", 393,
               {"train_llama3_1b": train["delta"],
                "train_tiny_fp32": tiny["delta"]}, bwd, "train_llama3_1b",

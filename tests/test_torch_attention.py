@@ -153,6 +153,25 @@ def test_per_row_q_offset_matches_static_rows(sq):
         _close(lse[row:row + 1], jlse)
 
 
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (6, 2)])
+def test_per_row_q_offset_decode_shape(hq, hkv):
+    """The decode variant's shape (8 slots, one query position, GQA groups
+    of 4 and 3) at offsets from 0 to Sk - 1, row by row against JAX's
+    static-offset calls."""
+    b, sk = 8, 40
+    q, k, v = _qkv(b=b, sq=1, sk=sk, hq=hq, hkv=hkv, seed=4)
+    offsets = np.array([0, 1, 5, 13, 20, 27, 38, sk - 1], np.int32)
+    assert fa.fwd_variant(torch.bfloat16, 1, hq, hkv) == "decode"
+    o, lse = fa.flash_attention_with_lse(
+        *_t(q, k, v), q_offset=torch.from_numpy(offsets))
+    for row, off in enumerate(offsets):
+        jo, jlse = jax_flash_lse(
+            jnp.asarray(q[row:row + 1]), jnp.asarray(k[row:row + 1]),
+            jnp.asarray(v[row:row + 1]), q_offset=int(off), interpret=True)
+        _close(o[row:row + 1], jo)
+        _close(lse[row:row + 1], jlse)
+
+
 def test_flash_mask_argument_rejected():
     q, k, v = _t(*_qkv())
     with pytest.raises(NotImplementedError):
@@ -199,7 +218,7 @@ def test_wrapper_shape_checks():
 
 
 @pytest.mark.parametrize("ctas,n_tiles,expect", [
-    (64, 32, (8, 4)),       # llama3-1b decode: 8 slots x 8 KV heads, 2048 keys
+    (64, 32, (8, 4)),       # fp32 decode: 8 slots x 8 KV heads, 2048 keys
     (32, 32, (16, 2)),      # prefill Sq=16: 4 lanes x 8 KV heads, one row block
     (256, 32, (3, 11)),     # prefill Sq=128
     (1024, 32, (1, 32)),    # prefill Sq=512: enough CTAs, no split
@@ -210,3 +229,18 @@ def test_kv_split_choice(ctas, n_tiles, expect):
     assert (n_split, split_tiles) == expect
     assert (n_split - 1) * split_tiles < n_tiles <= n_split * split_tiles
 
+
+@pytest.mark.parametrize("sk,expect", [
+    (2048, (256, 8)),     # llama3-1b serving cache: 8 chunks of 256 keys
+    (8192, (1024, 8)),    # llama3-8b width over an 8192-key cache
+    (128, (64, 2)),       # the tiny preset's cache
+    (40, (64, 1)),        # a cache shorter than one chunk: no merge
+    (300, (64, 5)),       # a ragged last chunk
+    (1000, (128, 8)),
+])
+def test_decode_chunks(sk, expect):
+    chunk, n_chunks = fa._decode_chunks(sk)
+    assert (chunk, n_chunks) == expect
+    assert chunk % 64 == 0 and 1 <= n_chunks <= fa.DECODE_CLUSTER
+    # The chunks tile the capacity: the last one holds the last key.
+    assert (n_chunks - 1) * chunk < sk <= n_chunks * chunk

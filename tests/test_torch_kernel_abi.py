@@ -7,6 +7,7 @@
   launch on the card would show).
 * The variant choice of K1, K2 and K3 (tensor-core ``sm90`` or ``fma``)
   at the serving, training and edge shapes.
+* The decode planner's limits against the decode kernel's constants.
 * The build key covers the shared headers, so an edited header rebuilds.
 """
 
@@ -82,8 +83,14 @@ BF, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("dtype,sq,h,hkv,want", [
-    (BF, 1, 32, 8, "fma"),       # llama3-1b serving decode: 4 packed rows
+    (BF, 1, 32, 8, "decode"),    # llama3-1b serving decode: 4 packed rows
+    (BF, 1, 6, 2, "decode"),     # decode at a GQA group of 3
+    (BF, 1, 16, 1, "decode"),    # decode at a group of 16: one mma M tile
+    (BF, 4, 32, 8, "decode"),    # 4 positions x group 4: 16 rows
+    (BF, 5, 32, 8, "fma"),       # 20 rows: past one mma tile, short of 64
+    (F32, 1, 32, 8, "fma"),      # fp32 decode stays FMA (no TF32)
     (BF, 16, 32, 8, "sm90"),     # the smallest prefill bucket: 64 rows
+    (BF, 16, 8, 2, "sm90"),      # a 16-token prefill at group 4
     (BF, 8, 32, 8, "fma"),       # below one 64-row tile
     (BF, 512, 32, 8, "sm90"),    # prefill 512
     (BF, 2048, 32, 8, "sm90"),   # llama3-1b training
@@ -117,16 +124,30 @@ def test_dq_variant(dtype, h, hkv, want):
     assert fa.dq_variant(dtype, h, hkv) == want
 
 
+def test_decode_planner_fits_the_kernel():
+    """The decode planner's row and chunk limits are the kernel's own: one
+    mma M tile of packed rows, and at most one portable cluster of
+    chunks (a larger cluster fails only at launch, on the card)."""
+    src = (_build.CSRC / "flash_fwd_decode_sm90.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kRows"]) == fa.DECODE_ROWS
+    assert int(const["kMaxCluster"]) == fa.DECODE_CLUSTER <= 8
+
+
 def test_cpu_calls_count_no_launch():
-    """CPU tensors take the plain versions: no counter moves."""
+    """CPU tensors take the plain versions: no counter moves, the decode
+    variant's included."""
     rs = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 16, generator=rs).to(BF)
     k = torch.randn(1, 64, 2, 16, generator=rs).to(BF)
     wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
                 fa.flash_bwd_dkv)
     by_variant = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    assert set(fa.flash_fwd.launches_by_variant) == {"sm90", "decode", "fma"}
     before = ([w.launches for w in wrappers],
               [dict(w.launches_by_variant) for w in by_variant])
+    assert fa.fwd_variant(BF, 1, 4, 2) == "decode"
+    fa.flash_fwd(q[:, :1], k, k, q_offset=torch.tensor([63]))
     o, lse = fa.flash_fwd(q, k, k)
     delta = fa.flash_bwd_delta(o, q)
     fa.flash_bwd_dq(q, k, k, q, lse, delta)

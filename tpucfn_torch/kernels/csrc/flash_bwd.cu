@@ -2,10 +2,15 @@
 //
 // Three kernels, the backward of flash_fwd.cu's K1:
 //
-//  * flash_bwd_delta: Delta = rowsum(dO * O) in fp32, one warp per
-//    (batch, position, head) row.  Replaces the XLA preprocess in
-//    `_flash_bwd` (tpucfn/kernels/flash_attention.py, line 393).  Bound by
-//    the bytes of O and dO it reads.
+//  * flash_bwd_delta: Delta = rowsum(dO * O) in fp32.  Replaces the XLA
+//    preprocess in `_flash_bwd` (tpucfn/kernels/flash_attention.py, line
+//    393).  Bound by the bytes of O and dO it reads: a CTA covers 32
+//    positions x a run of heads of one batch row, each thread loads 16-byte
+//    vectors of O and dO for 8 rows before any math (a row takes D / 8
+//    lanes in bf16, D / 4 in fp32; loads marked evict-first, as the data
+//    is read once), the lanes of a row reduce by shuffles,
+//    and the results go out through shared memory so that each head's 32
+//    positions leave as one 128-byte store.
 //  * flash_bwd_dq (K2): replaces the Pallas TPU kernel `_bwd_dq_kernel`.
 //    For each live (query, key) pair it recomputes P = exp(S - LSE), forms
 //    dP = dO . V, dS = P * (dP - Delta [+ dLSE]) * scale, and accumulates
@@ -117,15 +122,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 __host__ __device__ constexpr int padded(int D) { return D + 4; }
@@ -368,20 +364,79 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
   }
 }
 
-// Delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp per row,
-// rows in (B, Sq, H) order so a warp reads D contiguous elements.
-template <typename T>
+// Delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d].  A CTA covers
+// kDeltaPos positions x HEADS heads of batch row blockIdx.z; its rows run
+// head-fastest (memory order), a row is L lanes of one 16-byte vector each,
+// and thread t takes rows t / L + j * (kThreads / L), j < kDeltaRows.
+constexpr int kDeltaPos = 32;  // positions per CTA: one 128-byte run of Delta per head
+constexpr int kDeltaRows = 8;  // rows per thread, all loads in flight together
+
+template <typename T, int D>
+struct DeltaCfg {
+  static constexpr int L = D / Vec<T>::N;                 // lanes per row
+  static constexpr int PASS = kThreads / L;               // rows per pass of the CTA
+  static constexpr int HEADS = PASS * kDeltaRows / kDeltaPos;
+  static_assert(HEADS >= 1 && HEADS * kDeltaPos == PASS * kDeltaRows, "whole runs of positions");
+};
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_delta_kernel(const T* o, const T* dout, float* delta, int B, int Sq, int H, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t w = (size_t)blockIdx.x * (kThreads / 32) + warp;
-  if (w >= (size_t)B * Sq * H) return;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(dout[w * D + d]), to_f32(o[w * D + d]), acc);
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const int h = (int)(w % H), s = (int)(w / H % Sq), b = (int)(w / ((size_t)H * Sq));
-    delta[((size_t)b * H + h) * Sq + s] = acc;
+    flash_bwd_delta_kernel(const T* o, const T* dout, float* delta, int Sq, int H) {
+  using C = DeltaCfg<T, D>;
+  constexpr int L = C::L, HEADS = C::HEADS;
+  __shared__ float tile[HEADS][kDeltaPos + 1];
+  const int s0 = blockIdx.x * kDeltaPos, h0 = blockIdx.y * HEADS, b = blockIdx.z;
+  const int part = threadIdx.x % L, first = threadIdx.x / L;
+  uint4 ov[kDeltaRows], dv[kDeltaRows];
+#pragma unroll
+  for (int j = 0; j < kDeltaRows; ++j) {
+    const int row = first + j * C::PASS, s = s0 + row / HEADS, h = h0 + row % HEADS;
+    ov[j] = dv[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (s < Sq && h < H) {
+      const size_t off = ((size_t)(b * Sq + s) * H + h) * D + part * Vec<T>::N;
+      // read once: evict-first in L2, so no other line is pushed out for them
+      ov[j] = __ldcs(reinterpret_cast<const uint4*>(o + off));
+      dv[j] = __ldcs(reinterpret_cast<const uint4*>(dout + off));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kDeltaRows; ++j) {
+    float fo[Vec<T>::N], fd[Vec<T>::N];
+    Vec<T>::to_f32(ov[j], fo);
+    Vec<T>::to_f32(dv[j], fd);
+    float acc = 0.f;
+#pragma unroll
+    for (int e = 0; e < Vec<T>::N; ++e) acc = fmaf(fd[e], fo[e], acc);
+#pragma unroll
+    for (int w = L / 2; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+    const int row = first + j * C::PASS;
+    if (part == 0) tile[row % HEADS][row / HEADS] = acc;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < HEADS * kDeltaPos; i += kThreads) {
+    const int h = h0 + i / kDeltaPos, s = s0 + i % kDeltaPos;
+    if (s < Sq && h < H) delta[((size_t)b * H + h) * Sq + s] = tile[i / kDeltaPos][i % kDeltaPos];
+  }
+}
+
+template <typename T, int D>
+int launch_delta(const void* o, const void* dout, float* delta, int B, int Sq, int H,
+                 cudaStream_t s) {
+  constexpr int HEADS = DeltaCfg<T, D>::HEADS;
+  const dim3 grid((Sq + kDeltaPos - 1) / kDeltaPos, (H + HEADS - 1) / HEADS, B);
+  flash_bwd_delta_kernel<T, D><<<grid, kThreads, 0, s>>>(static_cast<const T*>(o),
+                                                           static_cast<const T*>(dout), delta, Sq, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_delta(int D, const void* o, const void* dout, float* delta, int B, int Sq, int H,
+                   cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_delta<T, 16>(o, dout, delta, B, Sq, H, s);
+    case 64: return launch_delta<T, 64>(o, dout, delta, B, Sq, H, s);
+    case 128: return launch_delta<T, 128>(o, dout, delta, B, Sq, H, s);
+    default: return -1;
   }
 }
 
@@ -442,17 +497,9 @@ int flash_bwd_delta(const void* o, const void* dout, float* delta, int B, int Sq
                     int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t warps = (size_t)B * Sq * H;
-  const unsigned blocks = (unsigned)((warps + kThreads / 32 - 1) / (kThreads / 32));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, B,
-        Sq, H, D);
-  else
-    flash_bwd_delta_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), delta, B, Sq, H, D);
-  return (int)cudaGetLastError();
+  return is_bf16 ? dispatch_delta<__nv_bfloat16>(D, o, dout, delta, B, Sq, H, s)
+                 : dispatch_delta<float>(D, o, dout, delta, B, Sq, H, s);
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,

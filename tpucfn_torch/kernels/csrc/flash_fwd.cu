@@ -1,7 +1,8 @@
 // FlashAttention-2 forward for Hopper (sm_90a), plain shared-memory tiles:
-// K1's "fma" variant, for fp32 and for calls with fewer than 64 packed
-// rows per (batch row, KV head) such as decode.  bf16 calls with more run
-// the tensor-core kernel in flash_fwd_sm90.cu.
+// K1's "fma" variant, for fp32 and for bf16 calls with 17 to 63 packed
+// rows per (batch row, KV head).  bf16 calls with more run the
+// tensor-core kernel in flash_fwd_sm90.cu, with at most 16 (decode) the
+// one in flash_fwd_decode_sm90.cu.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // tpucfn/kernels/flash_attention.py (launched by `_flash_fwd`): it

@@ -4,13 +4,15 @@
 The kernels are CUDA C++, built with ``nvcc`` for ``sm_90a`` at first use
 and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
 
-* K1, the forward ``_fwd_kernel`` (wrapper :func:`flash_fwd`), in two
+* K1, the forward ``_fwd_kernel`` (wrapper :func:`flash_fwd`), in three
   variants that :func:`fwd_variant` picks between:
   ``csrc/flash_fwd_sm90.cu`` ("sm90": wgmma tensor cores fed by TMA) for
-  bf16 with at least 64 packed rows per (batch row, KV head), and
-  ``csrc/flash_fwd.cu`` ("fma": fp32 FMA with split-KV and a combine
-  pass) for fp32 and for decode, whose few rows would leave a 64-row
-  tensor-core tile mostly empty;
+  bf16 with at least 64 packed rows per (batch row, KV head),
+  ``csrc/flash_fwd_decode_sm90.cu`` ("decode": mma.sync at M = 16 over
+  a grid of key chunks fixed by the cache's capacity, the chunks of a
+  (batch row, KV head) merged on chip by a CTA cluster) for bf16 with at
+  most 16, which is every serving decode step, and ``csrc/flash_fwd.cu`` ("fma": fp32 FMA with split-KV and a
+  combine pass) for fp32 and the bf16 calls in between;
 * the backward: Delta = rowsum(dO*O) (:func:`flash_bwd_delta`,
   ``csrc/flash_bwd.cu``), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`) and
   K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`), each in two variants
@@ -19,6 +21,12 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
   ("sm90": wgmma fed by TMA) for bf16 with a GQA group that divides 64,
   and the fp32 FMA kernels of ``csrc/flash_bwd.cu`` ("fma") otherwise;
   :func:`flash_bwd` runs the three.
+
+The decode variant reads nothing back to the host and keeps no state
+between launches, and its grid depends on the shapes alone, so one call
+can be captured in a CUDA graph and replayed as the offsets and the
+cache move (make one call before the capture: the first builds the
+library).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
@@ -46,7 +54,8 @@ Block sizes of K1's fma variant: ``block_q`` rows per CTA — a row is one
 ``TPUCFN_FLASH_BLOCK_Q``/``_K``, then 64/64.  The JAX package's tuned
 table holds TPU measurements and is not carried over.  The sm90 forward
 tiles 64 rows by 128 keys (64 at D = 128) and the backward kernels 64 x
-64, fixed in their sources.  Padding to a block is never materialized:
+64, fixed in their sources; the decode variant's key chunks come from
+:func:`_decode_chunks`.  Padding to a block is never materialized:
 the kernels mask the ragged edge themselves.
 """
 
@@ -67,6 +76,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
 MAX_SPLITS = 16  # split-KV CTAs per (q-block, head, row); the combine takes <= 32
 TC_ROWS = 64  # packed rows of one tensor-core (sm90) tile: one wgmma M
+DECODE_ROWS = 16  # packed rows of the decode variant: one mma.sync M
+# Key chunks per (batch row, KV head), one CTA cluster: the portable
+# cluster limit.  chip_smoke.py's ``decode_chunking`` holds 8 against 4 at
+# the serving phase's decode offsets and at spread offsets.
+DECODE_CLUSTER = 8
 
 __all__ = ["NEG_INF", "flash_attention", "flash_attention_with_lse",
            "flash_bwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq",
@@ -125,6 +139,15 @@ def _kv_splits(ctas: int, n_tiles: int, n_sm: int) -> tuple[int, int]:
     return -(-n_tiles // split_tiles), split_tiles
 
 
+def _decode_chunks(sk: int) -> tuple[int, int]:
+    """(chunk_keys, n_chunks) of the decode variant for a cache of capacity
+    ``sk``: at most :data:`DECODE_CLUSTER` chunks of a multiple of 64 keys
+    that cover it, one CTA each, so the grid (and each cluster) is fixed by
+    the shapes, not by the live lengths."""
+    chunk = 64 * -(-sk // (64 * DECODE_CLUSTER))
+    return chunk, -(-sk // chunk)
+
+
 def _segment_mask(q_seg, kv_seg):
     if q_seg is None:
         return None
@@ -140,14 +163,18 @@ def _plain_fwd(q, k, v, *, causal, q_offset, k_offset, q_seg, kv_seg):
 
 def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
     """Which K1 kernel a forward of q (B, sq, h, D) over hkv KV heads
-    launches: "sm90" (tensor cores) for bf16 with at least one 64-row tile
-    of packed rows per (batch row, KV head), sq * (h / hkv) >= 64, and a
-    GQA group that divides the tile (TMA loads a tile as a box of
-    64 / group positions x group heads); "fma" (split-KV) otherwise —
-    fp32, and decode, whose few rows would leave a 64-row tile empty."""
+    launches.  In bf16: "decode" (mma.sync at M = 16) for at most 16
+    packed rows per (batch row, KV head), sq * (h / hkv) <= 16 — every
+    serving decode step; "sm90" (wgmma tensor cores) for at least one
+    64-row tile of them and a GQA group that divides the tile (TMA loads
+    a tile as a box of 64 / group positions x group heads).  "fma"
+    (split-KV) otherwise: fp32, and the bf16 calls in between."""
     rep = h // hkv
-    return ("sm90" if dtype == torch.bfloat16 and sq * rep >= TC_ROWS
-            and TC_ROWS % rep == 0 else "fma")
+    if dtype != torch.bfloat16:
+        return "fma"
+    if sq * rep <= DECODE_ROWS:
+        return "decode"
+    return "sm90" if sq * rep >= TC_ROWS and TC_ROWS % rep == 0 else "fma"
 
 
 def dkv_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
@@ -180,6 +207,13 @@ ARGTYPES = {
         # causal; scale; device; stream
         "flash_fwd_sm90": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
         "flash_fwd_sm90_error_string": _ERR,
+    },
+    "flash_fwd_decode_sm90": {
+        # q k v o lse q_offset q_seg kv_seg; B H Hkv Sq Sk D k_offset
+        # causal; scale; chunk_keys n_chunks device; stream
+        "flash_fwd_decode_sm90": ([_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
+                                  + [_P], _I),
+        "flash_fwd_decode_sm90_error_string": _ERR,
     },
     "flash_bwd": {
         # o dout delta; B Sq H D; is_bf16 device; stream
@@ -324,6 +358,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse.data_ptr(), q_off.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
             b, h, hkv, sq, sk, d, int(k_offset), int(bool(causal)), d ** -0.5,
             q.device.index, stream), "flash_fwd", "flash_fwd_sm90")
+    elif variant == "decode":
+        _fwd_decode(q, k, v, o, lse, q_off, segs, causal, k_offset, stream)
     else:
         _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk,
                  stream)
@@ -364,8 +400,25 @@ def _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk, stream):
         q.device.index, stream), "flash_fwd", "flash_fwd")
 
 
+def _fwd_decode(q, k, v, o, lse, q_off, segs, causal, k_offset, stream):
+    """Launches K1's decode variant (``csrc/flash_fwd_decode_sm90.cu``):
+    one CTA per (key chunk, KV head, batch row) over the cache's whole
+    capacity, the chunks of each (KV head, batch row) one cluster that
+    merges them on chip."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    chunk_keys, n_chunks = _decode_chunks(sk)
+    lib = _lib("flash_fwd_decode_sm90")
+    _raise_on(lib, lib.flash_fwd_decode_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), q_off.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        b, h, hkv, sq, sk, d, int(k_offset), int(bool(causal)), d ** -0.5,
+        chunk_keys, n_chunks, q.device.index, stream),
+        "flash_fwd", "flash_fwd_decode_sm90")
+
+
 flash_fwd.launches = 0
-flash_fwd.launches_by_variant = {"sm90": 0, "fma": 0}
+flash_fwd.launches_by_variant = {"sm90": 0, "decode": 0, "fma": 0}
 
 # ---- backward --------------------------------------------------------------
 
