@@ -12,50 +12,61 @@ Phases, each printed as one JSON line:
 2. ``build``: compiles every kernel source of the serving and training
    paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu``,
    ``flash_fwd_sm90.cu``, ``flash_fwd_decode_sm90.cu``,
-   ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu`` and
-   ``flash_bwd_dkv_sm90.cu``) with ``nvcc`` for ``sm_90a``, one process
-   per source, all started together.
+   ``flash_fwd_mma_sm90.cu``, ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu``,
+   ``flash_bwd_dkv_sm90.cu`` and ``flash_bwd_dkv_mma_sm90.cu``) with
+   ``nvcc`` for ``sm_90a``, one process per source, all started together.
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
    decode and prefill), the training path's (2 x 2048, causal), the
    decode variant's edge cases (llama3-8b width over an 8192-key cache,
    a GQA group of 3, D=16, segment ids, empty rows, non-causal, 4
-   positions x GQA 4) and the other edge cases (D=16/GQA and ragged
-   D=128 with offsets, in fp32 and bf16; empty rows, segment ids,
-   non-causal; a GQA group of 3); each row names the variant that ran
-   (``sm90``: wgmma tensor cores, bf16 with at least 64 packed rows;
-   ``decode``: mma.sync, bf16 with at most 16; ``fma``: split-KV, fp32
-   and bf16 in between); error, tolerance, times of the kernel, the
-   plain version and one PyTorch library call
+   positions x GQA 4), two speculative-decoding verify passes (5 and 9
+   positions x GQA 4 over a 2048-key cache: 20 and 36 packed rows) and
+   the other edge cases (D=16/GQA and ragged D=128 with offsets, in fp32
+   and bf16; empty rows, segment ids, non-causal; a GQA group of 3);
+   each row names the variant that ran (``sm90``: wgmma tensor cores,
+   bf16 with at least 64 packed rows and a group dividing 64;
+   ``decode``: mma.sync, bf16 with at most 16; ``mma``: mma.sync at any
+   row count and group, fp32 as 3xTF32); error, tolerance, times of the
+   kernel, the plain version and one PyTorch library call
    (``scaled_dot_product_attention`` with a boolean mask, or
    ``is_causal`` for a plain causal square case: a yardstick only, never
    called by the port), the roofline bound and the host time of one
-   call (no synchronise).  At the llama3-1b decode shape the fma kernel
-   is timed on the same inputs beside the decode variant.  Then one
-   decode launch is captured in a ``torch.cuda.CUDAGraph``, the offsets,
+   call (no synchronise).  At every ``mma`` shape the old fma kernel
+   (``flash_fwd.cu``, on no path now) is timed beside it in turns on the
+   same inputs (fma, mma, mma, fma) and held to the same tolerance, and
+   at the llama3-1b decode shape beside the decode variant; at every
+   ``decode`` shape the mma variant is timed beside decode in turns
+   (decode, mma, mma, decode) and held to the same tolerance
+   (``mma_beside``: does decode still earn a kernel of its own?).
+   ``mma_plans`` times the mma planner's key chunks against one chunk in
+   turns.  Then one decode launch is captured in a ``torch.cuda.CUDAGraph``, the offsets,
    the query and the cache are changed in place, and the replay is held
    against the plain version (a replay is not a wrapper call and counts
    no launch).
-4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV),
-   K2 and K3 each in variant ``sm90`` in bf16, ``fma`` in fp32 or for a
-   GQA group that does not divide 64 — against the plain backward on the
-   same inputs,
-   at the training shape (llama3-1b, B=2, S=2048, bf16) and the edge
-   cases (D=16 GQA 2, D=128 with a query offset and a nonzero dLSE, each
-   in fp32 and bf16; segment ids, empty rows, non-causal ragged lengths,
-   a GQA group of 3); error beside its tolerance, kernel,
+4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV)
+   — against the plain backward on the same inputs: K2 and K3 on
+   ``sm90`` in bf16 with a GQA group dividing 64; otherwise K3 on ``mma``
+   (mma.sync, 3xTF32 in fp32) and K2 on ``fma`` (fp32 FMA).  At the
+   training shape (llama3-1b, B=2, S=2048, bf16) and the edge cases (D=16
+   GQA 2, D=128 with a query offset and a nonzero dLSE, each in fp32 and
+   bf16; segment ids, empty rows, non-causal ragged lengths, a GQA group
+   of 3); error beside its tolerance, kernel,
    bound, plain and library ms (the library yardstick is the backward of
    one ``scaled_dot_product_attention`` call for K2 and K3, and one
-   ``torch.linalg.vecdot`` for Delta); an empty call counts no launch.
+   ``torch.linalg.vecdot`` for Delta); at every K3 ``mma`` shape the old
+   fma K3 kernel is timed beside it in turns and held to the same
+   tolerance; an empty call counts no launch.
 5. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
    full width and depth of llama3-1b (random weights from a seed) answers
    8 requests; every request completes, no KV block leaks, the kernel ran
    on every layer of every prefill (``sm90``) and decode (``decode``)
-   call, none on ``fma``, and teacher-forced logits agree with the plain
+   call, none on ``mma`` or ``fma``, and teacher-forced logits agree with the plain
    attention path; a profiled decode step reports the decode kernel's
    device time.
-6. ``serve_tiny_fp32``: the tiny preset in fp32; the engine's greedy
-   tokens (kernel) equal ``generate``'s (plain attention).
+6. ``serve_tiny_fp32``: the tiny preset in fp32; every K1 launch on
+   ``mma``, and the engine's greedy tokens (kernel) equal ``generate``'s
+   (plain attention).
 7. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
    bf16 compute, full remat, chunked CE with z-loss, the example's
    clip + AdamW + warmup-cosine chain) takes 4 steps on a fixed
@@ -63,15 +74,17 @@ Phases, each printed as one JSON line:
    llama3-1b (random weights from seed 0): finite losses, the last below
    the first, and per step exactly 32 K1 launches (forward and remat
    recompute), 16 K2, 16 K3 and 16 Delta, every K1, K2 and K3 launch on
-   the ``sm90`` variant; then loss and every gradient
+   the ``sm90`` variant (none on ``mma`` or ``fma``); then loss and every gradient
    against the plain attention path (loss within a tolerance, cosine
    >= 0.99), step time, tokens/s, peak memory, model flops over the
    bf16 peak, and a profiled step.
 8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
-   kernels against the plain path: losses equal to fp32 sum order.
+   kernels against the plain path: losses equal to fp32 sum order; every
+   K1 and K3 launch on ``mma``, every K2 launch on ``fma``.
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
-launched on a path above) and, last, ``{"ok": true, "device": {...}}``.
+launched on a path above, and the old fma kernels of K1 and K3, which
+no path reaches, with their times from the turns) and, last, ``{"ok": true, "device": {...}}``.
 ``--phases device,build,kernel`` (any subset) gives a partial run that
 prints no result line.  Any failed phase exits non-zero before that
 line.  Without a CUDA device, or without the package beside it, the
@@ -93,20 +106,42 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
 # tpucfn_torch/kernels/csrc/<name>.cu
-SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90", "flash_bwd",
-           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
+           "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
+           "flash_bwd_dkv_sm90", "flash_bwd_dkv_mma_sm90")
 
-# NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.
+# NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.  An
+# fp32 product is bounded by the FMA units (67 TFLOP/s), except in the mma
+# variants, which run it as 3xTF32: three TF32 products (495 TFLOP/s) for
+# each fp32 one, so 495 / 3.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
+              "3xtf32": 495e12 / 3}
+
+
+def _peak_flops(dtype, variant):
+    """The ops peak a kernel's bound is taken against."""
+    if str(dtype) == "torch.float32" and variant == "mma":
+        return PEAK_FLOPS["3xtf32"]
+    return PEAK_FLOPS[str(dtype)]
+
+
+def _bound(bytes_, flops, peak_flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over ``peak_flops``."""
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_flops = flops / peak_flops * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 # K1 against its plain version.  bf16: both round P to bf16 before the PV
-# product (the plain version as the JAX dense path does, the sm90 and
-# decode kernels as the A operand of their products, though of
-# exp(S - running max) rather than of the normalized P) while the fma
+# product (the plain version as the JAX dense path does, the sm90, decode
+# and mma kernels as the A operand of their products, though of
+# exp(S - running max) rather than of the normalized P) while the old fma
 # kernel keeps P in fp32, so O
 # differs by up to ~2^-9 * max|v| plus the output's own bf16 rounding;
-# LSE is fp32 on both sides (sum order only).  fp32: sum order only.
+# LSE is fp32 on both sides (sum order only).  fp32: sum order, and in the
+# mma variant 3xTF32's dropped small x small terms (~2^-22 relative).
 TOL = {"torch.bfloat16": {"o": 2e-2, "lse": 1e-3},
        "torch.float32": {"o": 2e-5, "lse": 2e-5}}
 # Teacher-forced llama3-1b logits, kernel path vs plain path (bf16): the
@@ -164,9 +199,51 @@ def phase_build():
     logs = _build.build(*SOURCES)  # one nvcc per source, all at once
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
-    return {"built": sorted(logs), "libraries": [
-        str(_build.library_path(name).relative_to(HERE))
-        for name in SOURCES if _build.load(name)]}
+    libs = [_build.library_path(name) for name in SOURCES if _build.load(name)]
+    bad = _unwritten_uniform_reads(_build._nvcc(), libs)
+    if bad:
+        raise AssertionError(f"cp.async reads unwritten uniform registers: {bad}")
+    return {"built": sorted(logs),
+            "libraries": [str(lib.relative_to(HERE)) for lib in libs],
+            "cp_async_unwritten_uniform_reads": bad}
+
+
+def _unwritten_uniform_reads(nvcc, libs):
+    """The cp.async copies (SASS ``LDGSTS``) of each built kernel that read
+    a uniform register no instruction of their function writes: {library:
+    {function: count}}, empty when there are none.  ptxas (CUDA 12.9)
+    emitted such copies for L2-hinted cp.async in K3 mma's fp32 D=16
+    instantiations at some key blocks and optimisation levels, and they
+    fault on the card with "illegal instruction" when they run, which only
+    some shapes reach."""
+    import re
+
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    procs = {lib.name: subprocess.Popen([cuobjdump, "-sass", str(lib)],
+                                        stdout=subprocess.PIPE, text=True)
+             for lib in libs}
+    bad = {}
+    for lib, proc in procs.items():
+        sass = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass {lib}: exit {proc.returncode}")
+        for func in re.split(r"\n\s*Function : ", sass)[1:]:
+            written, reads = set(), []
+            for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", func):
+                ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
+                op, _, args = ins.partition(" ")
+                dst = re.match(r"UR(\d+)\b", args)
+                if dst:  # a .64 or .WIDE result takes the next one too
+                    width = 2 if (".64" in op or ".WIDE" in op) else 1
+                    written.update(range(int(dst[1]), int(dst[1]) + width))
+                if op.startswith("LDGSTS"):
+                    reads += [int(r) for r in re.findall(r"\+UR(\d+)", args)]
+                    reads += [int(r) + i for r in re.findall(r"desc\[UR(\d+)\]", args)
+                              for i in (0, 1)]
+            n = sum(r not in written for r in reads)
+            if n:
+                bad.setdefault(lib, {})[func.split()[0]] = n
+    return bad
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -235,7 +312,13 @@ def _kernel_cases(torch):
                                         q_offset=[0, 0, 0, 0], causal=False)),
              # 4 positions x a group of 4: 16 packed rows, one mma tile
              ("decode_sq4_gqa4", dict(b=8, h=32, hkv=8, d=64, sq=4, sk=sk,
-                                      dtype=bf, q_offset=_spread(8, sk - 4)))]
+                                      dtype=bf, q_offset=_spread(8, sk - 4))),
+             # speculative-decoding verify passes (width 1 + k, k = 4 and
+             # 8, at GQA 4: 20 and 36 packed rows) on the mma variant
+             ("verify_sq5_gqa4", dict(b=8, h=32, hkv=8, d=64, sq=5, sk=sk,
+                                      dtype=bf, q_offset=_spread(8, sk - 5))),
+             ("verify_sq9_gqa4", dict(b=8, h=32, hkv=8, d=64, sq=9, sk=sk,
+                                      dtype=bf, q_offset=_spread(8, sk - 9)))]
     for sq in (16, 128, 512):
         cases.append((f"prefill_llama3_1b_sq{sq}",
                       dict(b=4, h=32, hkv=8, d=64, sq=sq, sk=sk, dtype=bf,
@@ -260,11 +343,30 @@ def _kernel_cases(torch):
         ("bf16_d128_ragged_q_offset", dict(b=2, h=8, hkv=4, d=128, sq=96,
                                            sk=160, dtype=bf,
                                            q_offset=[0, 64])),
-        # a GQA group of 3 does not divide the 64-row tile: fma in bf16
+        # a GQA group of 3 does not divide the 64-row tile: mma in bf16
         ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
                            q_offset=[0, 32])),
     ]
     return cases
+
+
+def _in_turns(timer, call, attr, values):
+    """``call`` timed with ``fa.<attr>`` (a variant rule or a planner
+    constant) set to each of ``values`` in turn, restored after each:
+    ({value: [ms, ...]}, {value: the call's last output})."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    kept = getattr(fa, attr)
+    times, outs = {}, {}
+    for value in values:
+        setattr(fa, attr, (lambda *a, _v=value: _v) if callable(kept)
+                else value)
+        try:
+            times.setdefault(value, []).append(timer(call))
+            outs[value] = call()
+        finally:
+            setattr(fa, attr, kept)
+    return times, outs
 
 
 def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
@@ -345,17 +447,43 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
               + b * h * sq * 4 + b * 4                    # lse out, offsets
               + (b * (sq + sk) * 4 if segments else 0))
     flops = 4 * d * h * int(live.sum())  # QK^T and PV, 2 flops per MAC
-    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
-    t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-    return {"case": label, "variant": variant,
+    beside = {}
+    if variant == "mma":
+        # The old fma kernel (on no path now) beside mma, in turns, on
+        # these inputs, held to the same tolerance; its bound is taken
+        # against the FMA units' rate.
+        times, outs = _in_turns(timer, kernel, "fwd_variant",
+                                ("fma", "mma", "mma", "fma"))
+        fo, flse = outs["fma"]
+        fe = (fo.float() - ro.float()).abs().max().item()
+        fl = (flse - rlse).abs().max().item()
+        beside = {"fma_beside": {
+            "fma_ms": times["fma"], "mma_ms": times["mma"],
+            "max_abs_err": fe, "lse_max_abs_err": fl,
+            "ok": fe <= tol["o"] and fl <= tol["lse"],
+            **_bound(bytes_, flops, PEAK_FLOPS[str(dtype)])}}
+        ok = ok and beside["fma_beside"]["ok"]
+    elif variant == "decode":
+        # The mma variant, which takes any row count, beside decode in
+        # turns on these inputs, held to the same tolerance.
+        times, outs = _in_turns(timer, kernel, "fwd_variant",
+                                ("decode", "mma", "mma", "decode"))
+        mo, mlse = outs["mma"]
+        me = (mo.float() - ro.float()).abs().max().item()
+        ml = (mlse - rlse).abs().max().item()
+        beside = {"mma_beside": {
+            "decode_ms": times["decode"], "mma_ms": times["mma"],
+            "max_abs_err": me, "lse_max_abs_err": ml,
+            "ok": me <= tol["o"] and ml <= tol["lse"]}}
+        ok = ok and beside["mma_beside"]["ok"]
+    return {"case": label, "variant": variant, **beside,
             "shape": dict(b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk,
                           dtype=str(dtype), causal=causal,
                           k_offset=k_offset, segments=segments),
             "ok": ok, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
             "tol": tol, "finite": finite, "empty_rows": int(empty.sum()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            **_bound(bytes_, flops, _peak_flops(dtype, variant)),
             "bytes": bytes_, "flops": flops, "host_us": host_us}
 
 
@@ -443,6 +571,39 @@ def _decode_chunking(torch, timer):
     return out
 
 
+def _fwd_mma_plans(torch, timer):
+    """K1 mma's key chunks (``_mma_fwd_plan``) timed in turns (plan, other,
+    other, plan) on the same inputs, at every ``mma`` shape of
+    ``_kernel_cases``, against one chunk per row block where the plan
+    splits the keys, else against the finest split (a chunk per tile, at
+    most 8)."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    out = {}
+    for label, kw in _kernel_cases(torch):
+        b, sq, h, hkv, d, sk, dtype = (kw[k] for k in (
+            "b", "sq", "h", "hkv", "d", "sk", "dtype"))
+        if fa.fwd_variant(dtype, sq, h, hkv) != "mma":
+            continue
+        g = torch.Generator("cuda").manual_seed(len(label))
+        q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+        q_off = torch.tensor(kw["q_offset"], dtype=torch.int32, device="cuda")
+        plan = fa._mma_fwd_plan(dtype, b, sq, h, hkv, d, sk)
+        tile = fa._mma_keys(dtype, d)
+        n_tiles = -(-sk // tile)
+        per = 1 if plan[2] == 1 else n_tiles  # the other plan's tiles a chunk
+        per = max(per, -(-n_tiles // fa.MMA_CLUSTER))
+        other = (plan[0], tile * per, -(-n_tiles // per))
+        if other == plan:
+            continue
+        times, _ = _in_turns(timer, lambda: fa.flash_fwd(q, k, k, q_offset=q_off),
+                             "_mma_fwd_plan", (plan, other, other, plan))
+        out[label] = {"plan": plan, "plan_ms": times[plan],
+                      "other": other, "other_ms": times[other]}
+    return out
+
+
 def _decode_graph_check(torch):
     """One decode launch captured in a CUDA graph; the offsets, the query
     and the cache then change in place and the replay must match the
@@ -502,18 +663,20 @@ def phase_kernel(results):
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    missing = {"sm90", "fma", "decode"} - {r["variant"] for r in rows}
+    missing = {"sm90", "mma", "decode"} - {r["variant"] for r in rows}
     if missing:
         raise AssertionError(f"no comparison launched the {missing} variant")
     beside = _decode_fma_beside(torch, timer)
     chunking = _decode_chunking(torch, timer)
+    plans = _fwd_mma_plans(torch, timer)
     graph = _decode_graph_check(torch)
     if not graph["ok"]:
         raise AssertionError(f"the replayed decode graph disagrees: {graph}")
     return {"cases": len(rows),
             "worst_max_abs_err": max(r["max_abs_err"] for r in rows),
             "decode_llama3_1b_fma_beside": beside,
-            "decode_chunking": chunking, "decode_graph": graph}
+            "decode_chunking": chunking, "mma_plans": plans,
+            "decode_graph": graph}
 
 
 # ---- phase 4: the backward kernels -----------------------------------------
@@ -550,15 +713,16 @@ def _bwd_cases(torch):
                                      dtype=bf, k_offset=40)),
         ("non_causal_ragged_d128", dict(b=2, h=8, hkv=8, d=128, sq=200,
                                         sk=300, dtype=bf, causal=False)),
-        # a GQA group of 3 does not divide the 64-row tile: K2, K3 fma in bf16
+        # a GQA group of 3 does not divide the 64-row tile: K3 mma and K2
+        # fma in bf16
         ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
                            q_offset=32)),
     ]
 
 
-def _err_row(pairs, dtype, ms, plain_ms, library_ms, bytes_, flops):
-    """``pairs``: tensor name -> (kernel's, reference); each tensor is
-    held to its own tolerance.  ``max_abs_err`` is the worst of them."""
+def _bwd_errs(pairs, dtype):
+    """``pairs``: tensor name -> (kernel's, reference); each tensor held to
+    its own tolerance: (ok, worst max_abs_err, per-tensor rows)."""
     tensors = {}
     for name, (got, ref) in pairs.items():
         ref = ref.float()
@@ -569,14 +733,17 @@ def _err_row(pairs, dtype, ms, plain_ms, library_ms, bytes_, flops):
             "ref_max_abs": scale, "finite": bool(got.isfinite().all())}
     ok = all(t["finite"] and t["max_abs_err"] <= t["tol"]
              for t in tensors.values())
-    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
-    t_flops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-    return {"ok": ok, "max_abs_err": max(t["max_abs_err"]
-                                         for t in tensors.values()),
-            "tensors": tensors, "ms": ms,
+    return ok, max(t["max_abs_err"] for t in tensors.values()), tensors
+
+
+def _err_row(pairs, dtype, ms, plain_ms, library_ms, bytes_, flops,
+             variant=None):
+    """``pairs``: tensor name -> (kernel's, reference); each tensor is
+    held to its own tolerance.  ``max_abs_err`` is the worst of them."""
+    ok, worst, tensors = _bwd_errs(pairs, dtype)
+    return {"ok": ok, "max_abs_err": worst, "tensors": tensors, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            **_bound(bytes_, flops, _peak_flops(dtype, variant)),
             "bytes": bytes_, "flops": flops}
 
 
@@ -665,16 +832,33 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
             timer(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                   iters=iters), plain_ms, library_ms,
             3 * n_q + 2 * n_kv + 2 * rows + dl_bytes + seg_bytes,
-            2 * 3 * d * pairs),
+            2 * 3 * d * pairs, variants["dq"]),
         "dkv": _err_row(
             {"dk": (dk, ref[1]), "dv": (dv, ref[2])}, dtype,
             timer(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
                   iters=iters), plain_ms, library_ms,
             2 * n_q + 4 * n_kv + 2 * rows + dl_bytes + seg_bytes,
-            2 * 4 * d * pairs),
+            2 * 4 * d * pairs, variants["dkv"]),
     }
     for n, variant in variants.items():
         rows_out[n]["variant"] = variant
+    if variants["dkv"] == "mma":
+        # The old fma K3 kernel (on no path now) beside mma in turns on
+        # these inputs, held to the same tolerance (bound against the FMA
+        # units' rate).
+        def dkv():
+            return fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+        times, outs = _in_turns(timer, dkv, "dkv_variant",
+                                ("fma", "mma", "mma", "fma"))
+        f_ok, f_err, _ = _bwd_errs({"dk": (outs["fma"][0], ref[1]),
+                                    "dv": (outs["fma"][1], ref[2])}, dtype)
+        rows_out["dkv"]["fma_beside"] = {
+            "fma_ms": times["fma"], "mma_ms": times["mma"],
+            "max_abs_err": f_err, "ok": f_ok,
+            **_bound(rows_out["dkv"]["bytes"], rows_out["dkv"]["flops"],
+                     PEAK_FLOPS[str(dtype)])}
+        rows_out["dkv"]["ok"] = rows_out["dkv"]["ok"] and f_ok
     return {"case": label, "shape": dict(
         b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk, dtype=str(dtype), causal=causal,
         q_offset=q_offset, k_offset=k_offset, segments=segments, dlse=dlse),
@@ -729,8 +913,9 @@ def phase_kernel_bwd(results):
                              f"backward: {bad}")
     if any(c.launches == n for c, n in zip(counters, before)):
         raise AssertionError("the comparisons never launched a kernel")
-    for key, kernel in (("dq", "K2"), ("dkv", "K3")):
-        missing = {"sm90", "fma"} - {r[key]["variant"] for r in rows}
+    for key, kernel, want in (("dq", "K2", {"sm90", "fma"}),
+                              ("dkv", "K3", {"sm90", "mma"})):
+        missing = want - {r[key]["variant"] for r in rows}
         if missing:
             raise AssertionError(f"no comparison launched the {missing} "
                                  f"{kernel} variant")
@@ -854,10 +1039,10 @@ def phase_serve_llama3_1b(results):
     assert launches == cfg.n_layers * calls, (launches, calls)
     # Every prefill (a bucket of >= 16 tokens x 4 query heads per KV head:
     # >= 64 packed rows) on the wgmma kernel, every decode (1 token x 4
-    # heads: 4 rows) on the decode variant, none on fma.
+    # heads: 4 rows) on the decode variant, none on mma or fma.
     assert by_variant == {"sm90": cfg.n_layers * counts["prefill_batch"],
                           "decode": cfg.n_layers * counts["decode"],
-                          "fma": 0}, by_variant
+                          "mma": 0, "fma": 0}, by_variant
     assert snap["prefix_hit_requests"] >= 1, snap
 
     plain = Llama.from_state_dict(engine.model.cfg, engine.model.state_dict(),
@@ -923,16 +1108,17 @@ def phase_serve_tiny_fp32(results):
     _zero_launch_counts()
     reqs = [server.submit(p, max_new_tokens=12) for p in prompts]
     server.run_until_idle()
-    fma = _launch_counts()["k1_fma"]
-    results["serve_tiny_launches"] = {"flash_fwd_fma": fma}
-    assert fma > 0 and _launch_counts()["k1_sm90"] == 0 \
-        and _launch_counts()["k1_decode"] == 0, _launch_counts()
+    counts = _launch_counts()
+    results["serve_tiny_launches"] = {"flash_fwd_mma": counts["k1_mma"]}
+    # fp32: every K1 launch (prefill and decode) on the mma variant
+    assert counts["k1_mma"] > 0 and counts["k1_mma"] == counts["k1"], counts
     params = engine.model.state_dict()
     for p, r in zip(prompts, reqs):
         ref = generate(cfg, params, [p], max_new_tokens=12)[0, len(p):]
         assert r.result(timeout=0) == ref.tolist(), (p, r.tokens, ref)
     assert server.kv.allocator.num_used == 0
-    return {"requests": len(reqs), "identical": True, "k1_fma_launches": fma}
+    return {"requests": len(reqs), "identical": True,
+            "k1_mma_launches": counts["k1_mma"]}
 
 
 # ---- phases 7 and 8: training ------------------------------------------------
@@ -959,9 +1145,9 @@ def _launch_counts():
             "k3": fa.flash_bwd_dkv.launches,
             "delta": fa.flash_bwd_delta.launches,
             "k1_sm90": k1["sm90"], "k1_decode": k1["decode"],
-            "k1_fma": k1["fma"],
+            "k1_mma": k1["mma"], "k1_fma": k1["fma"],
             "k2_sm90": k2["sm90"], "k2_fma": k2["fma"],
-            "k3_sm90": k3["sm90"], "k3_fma": k3["fma"]}
+            "k3_sm90": k3["sm90"], "k3_mma": k3["mma"], "k3_fma": k3["fma"]}
 
 
 def _zero_launch_counts():
@@ -1062,9 +1248,9 @@ def phase_train_llama3_1b(results):
 
     expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
     # Every K1, K2 and K3 launch of the step on the tensor-core variants.
-    expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_fma=0,
-                    k2_sm90=expected["k2"], k2_fma=0,
-                    k3_sm90=expected["k3"], k3_fma=0)
+    expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_mma=0,
+                    k1_fma=0, k2_sm90=expected["k2"], k2_fma=0,
+                    k3_sm90=expected["k3"], k3_mma=0, k3_fma=0)
     assert all(c == expected for c in per_step), (per_step, expected)
     assert all(map(math.isfinite, losses)), losses
     assert losses[-1] < losses[0], losses
@@ -1124,8 +1310,8 @@ def phase_train_tiny_fp32(results):
     assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
     assert all(k_counts[k] == 6 * n * cfg.n_layers
                for k, n in LAUNCHES_PER_LAYER.items()), k_counts
-    # fp32 runs the fma variants of K1, K2 and K3
-    assert (k_counts["k1_fma"], k_counts["k2_fma"], k_counts["k3_fma"]) == (
+    # fp32 runs K1 and K3 on mma (3xTF32), K2 on fma
+    assert (k_counts["k1_mma"], k_counts["k2_fma"], k_counts["k3_mma"]) == (
         k_counts["k1"], k_counts["k2"], k_counts["k3"]), k_counts
     assert not any(p_counts.values()), p_counts
     results["train_tiny_launches"] = k_counts
@@ -1166,6 +1352,21 @@ def _kernels_line(results):
         return [r for r in rows
                 if (r if key is None else r[key])["variant"] == variant]
 
+    def fma_beside(rows, key=None):
+        """The old fma kernel's rows, from its turns beside mma: its own
+        ms (the mean of its turns), error and bound; the plain and library
+        times of the same inputs."""
+        out = []
+        for r in rows:
+            row = r if key is None else r[key]
+            fb = row["fma_beside"]
+            out.append({"case": r["case"], **{k: fb[k] for k in (
+                "max_abs_err", "bound_ms", "bound_by")},
+                "ms": sum(fb["fma_ms"]) / len(fb["fma_ms"]),
+                "plain_ms": row["plain_ms"],
+                "library_ms": row["library_ms"]})
+        return out
+
     kernels = [
         entry("flash_fwd_sm90", "flash_fwd_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_sm90"],
@@ -1174,10 +1375,13 @@ def _kernels_line(results):
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"]},
               of(fwd, "decode"), "decode_llama3_1b"),
-        entry("flash_fwd_fma", "flash_fwd.cu", 98,
-              {"serve_tiny_fp32": serve_tiny["flash_fwd_fma"],
-               "train_tiny_fp32": tiny["k1_fma"]},
-              of(fwd, "fma"), "tiny_fp32_d16_gqa2"),
+        entry("flash_fwd_mma_sm90", "flash_fwd_mma_sm90.cu", 98,
+              {"serve_tiny_fp32": serve_tiny["flash_fwd_mma"],
+               "train_tiny_fp32": tiny["k1_mma"]},
+              of(fwd, "mma"), "tiny_fp32_d16_gqa2"),
+        # on no path: timed beside mma in turns
+        entry("flash_fwd_fma", "flash_fwd.cu", 98, {},
+              fma_beside(of(fwd, "mma")), "tiny_fp32_d16_gqa2"),
         entry("flash_bwd_delta", "flash_bwd.cu", 393,
               {"train_llama3_1b": train["delta"],
                "train_tiny_fp32": tiny["delta"]}, bwd, "train_llama3_1b",
@@ -1191,11 +1395,17 @@ def _kernels_line(results):
         entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
               {"train_llama3_1b": train["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
-        entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308,
-              {"train_tiny_fp32": tiny["k3_fma"]},
-              of(bwd, "fma", "dkv"), "fp32_d16_gqa2", "dkv"),
+        entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
+              {"train_tiny_fp32": tiny["k3_mma"]},
+              of(bwd, "mma", "dkv"), "fp32_d16_gqa2", "dkv"),
+        # on no path: timed beside mma in turns
+        entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308, {},
+              fma_beside(of(bwd, "mma", "dkv"), "dkv"), "fp32_d16_gqa2"),
     ]
-    idle = [k["name"] for k in kernels if not k["launches"]]
+    # A kernel of a path that no run of that path launched fails the line
+    # (the old fma kernels of K1 and K3 have no path).
+    idle = [k["name"] for k in kernels
+            if k["launches_by_path"] and not k["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
     return {"kernels": kernels}

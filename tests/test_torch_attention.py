@@ -172,6 +172,42 @@ def test_per_row_q_offset_decode_shape(hq, hkv):
         _close(lse[row:row + 1], jlse)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa3_matches_jax_flash(causal):
+    """A GQA group of 3 (H=6, Hkv=2), which K1 runs on its mma variant in
+    either dtype (3 does not divide the sm90 tile), both outputs."""
+    q, k, v = _qkv(sq=24, sk=32, hq=6, hkv=2, seed=5)
+    assert fa.fwd_variant(torch.bfloat16, 24, 6, 2) == "mma"
+    o, lse = fa.flash_attention_with_lse(*_t(q, k, v), causal=causal,
+                                         q_offset=8)
+    jo, jlse = jax_flash_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, q_offset=8, block_q=8, block_k=8,
+                             interpret=True)
+    _close(o, jo)
+    _close(lse, jlse)
+
+
+@pytest.mark.parametrize("sq", [5, 9])
+def test_verify_width_matches_jax_flash(sq):
+    """A speculative-decoding verify pass (Sq = 1 + k at GQA 4: 20 and 36
+    packed rows, K1's mma variant in bf16) over a longer cache, at a
+    per-row query offset each, row by row against JAX's static-offset
+    calls."""
+    b, sk = 4, 64
+    q, k, v = _qkv(b=b, sq=sq, sk=sk, hq=8, hkv=2, seed=6)
+    offsets = np.array([0, 17, 40, sk - sq], np.int32)
+    assert fa.fwd_variant(torch.bfloat16, sq, 8, 2) == "mma"
+    o, lse = fa.flash_attention_with_lse(
+        *_t(q, k, v), q_offset=torch.from_numpy(offsets))
+    for row, off in enumerate(offsets):
+        jo, jlse = jax_flash_lse(
+            jnp.asarray(q[row:row + 1]), jnp.asarray(k[row:row + 1]),
+            jnp.asarray(v[row:row + 1]), q_offset=int(off), block_q=8,
+            block_k=16, interpret=True)
+        _close(o[row:row + 1], jo)
+        _close(lse[row:row + 1], jlse)
+
+
 def test_flash_mask_argument_rejected():
     q, k, v = _t(*_qkv())
     with pytest.raises(NotImplementedError):

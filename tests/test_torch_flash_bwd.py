@@ -118,6 +118,33 @@ def test_flash_with_lse_grads_carry_dlse(rep, sq, sk, q_offset):
         _close(g, r)
 
 
+@pytest.mark.parametrize("with_dlse", [False, True])
+def test_gqa3_grads_match_jax(with_dlse):
+    """A GQA group of 3 (H=6, Hkv=2): K3's mma variant and K2's fma in
+    either dtype; with LSE consumed too, dLSE feeds dS."""
+    q, k, v, w = _arrays(sq=12, sk=20, hq=6, hkv=2, seed=6)
+    w_lse = np.random.RandomState(7).randn(2, 12, 6).astype(np.float32)
+    assert (fa.dkv_variant(torch.bfloat16, 6, 2),
+            fa.dq_variant(torch.bfloat16, 6, 2)) == ("mma", "fma")
+    tq, tk, tv = _leaves(q, k, v)
+    o, lse = fa.flash_attention_with_lse(tq, tk, tv, q_offset=8)
+    loss = (o * torch.from_numpy(w)).sum()
+    if with_dlse:
+        loss = loss + (lse * torch.from_numpy(w_lse)).sum()
+    grads = torch.autograd.grad(loss, (tq, tk, tv))
+
+    def jloss(q, k, v):
+        jo, jl = jax_flash_lse(q, k, v, q_offset=8, block_q=8, block_k=8,
+                               interpret=True)
+        return jnp.sum(jo * w) + (jnp.sum(jl * w_lse) if with_dlse else 0.0)
+
+    ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, r in zip(grads, ref):
+        assert torch.isfinite(g).all()
+        _close(g, r)
+
+
 def test_flash_with_lse_grad_of_lse_alone():
     """Only LSE consumed: the O cotangent is absent, not a NaN source."""
     q, k, v, _ = _arrays(seed=4)

@@ -5,9 +5,9 @@
   functions, the same arity, ``c_void_p`` for every pointer and the
   stream (a ``c_int`` would cut a 64-bit address to 32 bits, which only a
   launch on the card would show).
-* The variant choice of K1, K2 and K3 (tensor-core ``sm90`` or ``fma``)
-  at the serving, training and edge shapes.
-* The decode planner's limits against the decode kernel's constants.
+* The variant choice of K1, K2 and K3 (``sm90``, ``decode``, ``mma`` or
+  ``fma``) at the serving, training and edge shapes.
+* The decode and mma planners' limits against their kernels' constants.
 * The build key covers the shared headers, so an edited header rebuilds.
 """
 
@@ -87,18 +87,19 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 1, 6, 2, "decode"),     # decode at a GQA group of 3
     (BF, 1, 16, 1, "decode"),    # decode at a group of 16: one mma M tile
     (BF, 4, 32, 8, "decode"),    # 4 positions x group 4: 16 rows
-    (BF, 5, 32, 8, "fma"),       # 20 rows: past one mma tile, short of 64
-    (F32, 1, 32, 8, "fma"),      # fp32 decode stays FMA (no TF32)
+    (BF, 5, 32, 8, "mma"),       # 20 rows: past one mma tile, short of 64
+    (BF, 9, 32, 8, "mma"),       # 36 rows: a verify pass of width 9 at group 4
+    (F32, 1, 32, 8, "mma"),      # fp32 decode: 3xTF32, never plain TF32
     (BF, 16, 32, 8, "sm90"),     # the smallest prefill bucket: 64 rows
     (BF, 16, 8, 2, "sm90"),      # a 16-token prefill at group 4
-    (BF, 8, 32, 8, "fma"),       # below one 64-row tile
+    (BF, 8, 32, 8, "mma"),       # below one 64-row tile
     (BF, 512, 32, 8, "sm90"),    # prefill 512
     (BF, 2048, 32, 8, "sm90"),   # llama3-1b training
-    (F32, 2048, 32, 8, "fma"),   # fp32 stays FMA (no TF32)
+    (F32, 2048, 32, 8, "mma"),   # fp32: 3xTF32, never plain TF32
     (BF, 64, 4, 2, "sm90"),      # tiny shape in bf16, D=16 GQA 2
-    (BF, 64, 6, 2, "fma"),       # a group of 3 does not divide the tile
+    (BF, 64, 6, 2, "mma"),       # a group of 3 does not divide the tile
     (BF, 1, 64, 1, "sm90"),      # a group of 64: one position is one tile
-    (BF, 4, 128, 1, "fma"),      # a group of 128 exceeds the tile
+    (BF, 4, 128, 1, "mma"),      # a group of 128 exceeds the tile
 ])
 def test_fwd_variant(dtype, sq, h, hkv, want):
     assert fa.fwd_variant(dtype, sq, h, hkv) == want
@@ -106,7 +107,7 @@ def test_fwd_variant(dtype, sq, h, hkv, want):
 
 @pytest.mark.parametrize("dtype,h,hkv,want", [
     (BF, 32, 8, "sm90"), (BF, 4, 2, "sm90"), (BF, 8, 8, "sm90"),
-    (F32, 32, 8, "fma"), (BF, 6, 2, "fma"), (BF, 128, 1, "fma"),
+    (F32, 32, 8, "mma"), (BF, 6, 2, "mma"), (BF, 128, 1, "mma"),
 ])
 def test_dkv_variant(dtype, h, hkv, want):
     assert fa.dkv_variant(dtype, h, hkv) == want
@@ -116,7 +117,7 @@ def test_dkv_variant(dtype, h, hkv, want):
     (BF, 32, 8, "sm90"),    # llama3-1b training: a group of 4
     (BF, 4, 2, "sm90"),     # tiny shape in bf16: a group of 2
     (BF, 8, 8, "sm90"),     # no GQA: a group of 1
-    (F32, 32, 8, "fma"),    # fp32 stays FMA (no TF32)
+    (F32, 32, 8, "fma"),    # K2 keeps its fp32 FMA kernel (no TF32)
     (BF, 6, 2, "fma"),      # a group of 3 does not divide the tile
     (BF, 128, 1, "fma"),    # a group of 128 exceeds the tile
 ])
@@ -134,6 +135,42 @@ def test_decode_planner_fits_the_kernel():
     assert int(const["kMaxCluster"]) == fa.DECODE_CLUSTER <= 8
 
 
+def test_mma_planner_fits_the_kernel():
+    """The mma planners' constants are the kernels' own: 16 rows a warp,
+    at most 4 warps a CTA and one portable cluster of key chunks (K1),
+    K1's key tile, and K3's key block of one mma M tile over 4 warps."""
+    fwd = (_build.CSRC / "flash_fwd_mma_sm90.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", fwd))
+    assert int(const["kRowsPerWarp"]) == fa.MMA_ROWS
+    assert int(const["kMaxWarps"]) == fa.MMA_MAX_WARPS
+    assert int(const["kMaxCluster"]) == fa.MMA_CLUSTER <= 8
+    tile = re.search(r"is_same<T, float>::value && D == (\d+) \? (\d+) : (\d+)",
+                     fwd).groups()
+    for dtype, d in ((F32, 16), (F32, 64), (F32, 128), (BF, 16), (BF, 128)):
+        want = int(tile[1]) if dtype == F32 and d == int(tile[0]) \
+            else int(tile[2])
+        assert fa._mma_keys(dtype, d) == want
+    bwd = (_build.CSRC / "flash_bwd_dkv_mma_sm90.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", bwd))
+    assert int(const["kWarpKeys"]) == fa.MMA_ROWS and int(const["kWarps"]) == 4
+
+
+@pytest.mark.parametrize("dtype,b,sq,h,hkv,d,sk,want", [
+    # verify passes over llama3-1b's 2048-key cache: 20 and 36 rows
+    (BF, 8, 5, 32, 8, 64, 2048, (2, 256, 8)),
+    (BF, 8, 9, 32, 8, 64, 2048, (3, 256, 8)),
+    (F32, 2, 64, 4, 2, 16, 64, (4, 64, 1)),      # the tiny fp32 shape
+    (F32, 2, 96, 8, 4, 128, 160, (4, 32, 5)),    # fp32 D=128: 32-key tiles
+    (BF, 2, 64, 6, 2, 64, 128, (4, 128, 1)),     # GQA 3: 2 bf16 tiles, 1 chunk
+    (F32, 2, 2048, 32, 8, 64, 2048, (4, 2048, 1)),  # many rows: one chunk
+])
+def test_mma_fwd_plan(dtype, b, sq, h, hkv, d, sk, want):
+    warps, chunk, n = fa._mma_fwd_plan(dtype, b, sq, h, hkv, d, sk)
+    assert (warps, chunk, n) == want
+    assert chunk % fa._mma_keys(dtype, d) == 0 and chunk * n >= sk
+    assert 1 <= n <= fa.MMA_CLUSTER and 1 <= warps <= fa.MMA_MAX_WARPS
+
+
 def test_cpu_calls_count_no_launch():
     """CPU tensors take the plain versions: no counter moves, the decode
     variant's included."""
@@ -143,7 +180,8 @@ def test_cpu_calls_count_no_launch():
     wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
                 fa.flash_bwd_dkv)
     by_variant = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    assert set(fa.flash_fwd.launches_by_variant) == {"sm90", "decode", "fma"}
+    assert set(fa.flash_fwd.launches_by_variant) == {"sm90", "decode", "mma",
+                                                     "fma"}
     before = ([w.launches for w in wrappers],
               [dict(w.launches_by_variant) for w in by_variant])
     assert fa.fwd_variant(BF, 1, 4, 2) == "decode"

@@ -67,7 +67,13 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
 using sm90::exp2_ftz;
+using sm90::ldsm_x2;
+using sm90::ldsm_x2_trans;
+using sm90::mma16816;
 using sm90::pack_bf16;
 using sm90::smem_u32;
 
@@ -115,45 +121,6 @@ struct Cfg {
     return key * ROW + ((q ^ (key & (QN - 1))) << 4);
   }
 };
-
-// 16 bytes from global to shared memory, bypassing L1, evict-first in L2;
-// `bytes` = 0 fills zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes,
-                                           uint64_t policy) {
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "l"(policy)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Two 8 x 8 bf16 matrices; lanes 0-7 and 8-15 give their rows' addresses.
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-
-// C(16 x 8, fp32) += A(16 x 16) B(16 x 8), bf16 operands in registers.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The first CTA of a cluster merges the n_live partials (acc [kRows][D],
 // then (m, l) per row, in each CTA's shared memory) into O and LSE.  All
@@ -234,8 +201,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_decode_kernel(const Params
   // group per step, the next step's in flight while this one computes.
   // Keys past n_keys are zero-filled without a read.
   const uint32_t ring = smem_u32(smem) + warp * C::WARP;
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  const uint64_t policy = sm90::evict_first_policy();
   auto stage = [&](int j) {
     if (j < steps) {
       const int k0 = key_base + j * kTileKeys;

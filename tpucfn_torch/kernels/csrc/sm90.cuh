@@ -2,7 +2,10 @@
 // (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu): TMA
 // tensor maps and loads,
 // mbarriers, and warpgroup matrix multiplies (wgmma) with their shared
-// memory descriptors.  Plain inline PTX; no CUTLASS.
+// memory descriptors; and for the mma.sync kernels (flash_fwd_decode_sm90.cu,
+// flash_fwd_mma_sm90.cu, flash_bwd_dkv_mma_sm90.cu) cp.async, ldmatrix,
+// mma.sync in bf16 and in tf32, and the 3xTF32 split.  Plain inline PTX;
+// no CUTLASS.
 //
 // Shared-memory tiles.  A tile of R rows x D bf16 values is loaded by TMA
 // with the swizzle that its row width allows: a D = 64 row is 128 bytes,
@@ -277,6 +280,107 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+// ---- device: cp.async, ldmatrix, mma.sync ------------------------------------
+// The warp-level path of the mma.sync kernels (flash_fwd_decode_sm90.cu,
+// flash_fwd_mma_sm90.cu, flash_bwd_dkv_mma_sm90.cu).
+
+// An L2 policy that evicts the lines it tags first (data read once).
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes from global to shared memory, bypassing L1, tagged with an L2
+// `policy`; `bytes` = 0 fills zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes,
+                                           uint64_t policy) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+// The same with no L2 hint, for rows that other CTAs read again.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory; `bytes` = 0 fills zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two 8 x 8 bf16 matrices; lanes 0-7 and 8-15 give their rows' addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+// Four 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give matrix i's rows.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// C(16 x 8, fp32) += A(16 x 16) B(16 x 8), bf16 operands in registers.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C(16 x 8, fp32) += A(16 x 8) B(8 x 8), tf32 operands in registers.
+__device__ __forceinline__ void mma1688_tf32(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 (CUTLASS's "fast fp32"): x = big + small, each a tf32 value
+// (big = tf32(x), small = tf32(x - big), the subtraction exact in fp32),
+// and a product of fp32 operands is big.big + big.small + small.big,
+// accumulated in fp32 (small.small, ~2^-22 relative, is dropped).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+template <int N>
+__device__ __forceinline__ void split_tf32(const float* x, uint32_t* big, uint32_t* small) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    big[i] = to_tf32(x[i]);
+    small[i] = to_tf32(x[i] - __uint_as_float(big[i]));
+  }
+}
+__device__ __forceinline__ void mma1688_3xtf32(float* c, const uint32_t* a_big,
+                                               const uint32_t* a_small, const uint32_t* b_big,
+                                               const uint32_t* b_small) {
+  mma1688_tf32(c, a_small, b_big[0], b_big[1]);
+  mma1688_tf32(c, a_big, b_small[0], b_small[1]);
+  mma1688_tf32(c, a_big, b_big[0], b_big[1]);
 }
 
 // 2^x on the special-function unit, subnormal results flushed to zero (the

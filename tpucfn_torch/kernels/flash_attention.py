@@ -7,20 +7,29 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
 * K1, the forward ``_fwd_kernel`` (wrapper :func:`flash_fwd`), in three
   variants that :func:`fwd_variant` picks between:
   ``csrc/flash_fwd_sm90.cu`` ("sm90": wgmma tensor cores fed by TMA) for
-  bf16 with at least 64 packed rows per (batch row, KV head),
-  ``csrc/flash_fwd_decode_sm90.cu`` ("decode": mma.sync at M = 16 over
-  a grid of key chunks fixed by the cache's capacity, the chunks of a
-  (batch row, KV head) merged on chip by a CTA cluster) for bf16 with at
-  most 16, which is every serving decode step, and ``csrc/flash_fwd.cu`` ("fma": fp32 FMA with split-KV and a
-  combine pass) for fp32 and the bf16 calls in between;
+  bf16 with at least 64 packed rows per (batch row, KV head) and a GQA
+  group that divides 64; ``csrc/flash_fwd_decode_sm90.cu`` ("decode":
+  mma.sync at M = 16 over a grid of key chunks fixed by the cache's
+  capacity, the chunks of a (batch row, KV head) merged on chip by a CTA
+  cluster) for bf16 with at most 16, which is every serving decode step;
+  and ``csrc/flash_fwd_mma_sm90.cu`` ("mma": mma.sync, 1-4 warps of 16
+  rows a CTA, keys split into cluster-merged chunks from the shapes;
+  fp32 as 3xTF32) for everything else: fp32, bf16 at 17-63 rows (a
+  speculative-decoding verify pass) and groups that do not divide 64;
 * the backward: Delta = rowsum(dO*O) (:func:`flash_bwd_delta`,
   ``csrc/flash_bwd.cu``), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`) and
-  K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`), each in two variants
-  that :func:`dq_variant` and :func:`dkv_variant` (one rule) pick
-  between: ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``
-  ("sm90": wgmma fed by TMA) for bf16 with a GQA group that divides 64,
-  and the fp32 FMA kernels of ``csrc/flash_bwd.cu`` ("fma") otherwise;
+  K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`).  For bf16 with a GQA
+  group that divides 64 both run ``csrc/flash_bwd_dq_sm90.cu`` and
+  ``csrc/flash_bwd_dkv_sm90.cu`` ("sm90": wgmma fed by TMA); otherwise
+  K3 runs ``csrc/flash_bwd_dkv_mma_sm90.cu`` ("mma": mma.sync, 3xTF32 in
+  fp32; :func:`dkv_variant`) and K2 the fp32 FMA kernel of
+  ``csrc/flash_bwd.cu`` ("fma"; :func:`dq_variant`).
   :func:`flash_bwd` runs the three.
+
+K1's and K3's older FMA kernels (``csrc/flash_fwd.cu``, and
+``flash_bwd_dkv`` in ``csrc/flash_bwd.cu``) are reached by no variant
+rule; ``chip_smoke.py`` times them beside ``mma`` by overriding the rule
+for a call.
 
 The decode variant reads nothing back to the host and keeps no state
 between launches, and its grid depends on the shapes alone, so one call
@@ -48,15 +57,17 @@ so per-slot offsets (the serving engine's cache indices) cost it nothing.
 Such offsets are forward-only, as in the JAX package, whose backward
 takes static offsets.
 
-Block sizes of K1's fma variant: ``block_q`` rows per CTA — a row is one
+Block sizes of K1's old fma kernel: ``block_q`` rows per CTA — a row is one
 (query position, query head) pair of a KV head's GQA group — and
 ``block_k`` keys per KV tile.  Explicit arguments, then
 ``TPUCFN_FLASH_BLOCK_Q``/``_K``, then 64/64.  The JAX package's tuned
 table holds TPU measurements and is not carried over.  The sm90 forward
 tiles 64 rows by 128 keys (64 at D = 128) and the backward kernels 64 x
 64, fixed in their sources; the decode variant's key chunks come from
-:func:`_decode_chunks`.  Padding to a block is never materialized:
-the kernels mask the ragged edge themselves.
+:func:`_decode_chunks`, K1 mma's tiles and chunks from
+:func:`_mma_fwd_plan`; K3 mma takes 16 keys a CTA, fixed in its source.
+Padding to a block is never materialized: the kernels mask the ragged
+edge themselves.
 """
 
 from __future__ import annotations
@@ -81,6 +92,19 @@ DECODE_ROWS = 16  # packed rows of the decode variant: one mma.sync M
 # cluster limit.  chip_smoke.py's ``decode_chunking`` holds 8 against 4 at
 # the serving phase's decode offsets and at spread offsets.
 DECODE_CLUSTER = 8
+# The mma variants (csrc/flash_fwd_mma_sm90.cu, csrc/flash_bwd_dkv_mma_sm90.cu).
+MMA_ROWS = 16  # packed rows of one warp: one mma.sync M tile
+MMA_MAX_WARPS = 4  # K1: M tiles (warps) per CTA
+MMA_CLUSTER = 8  # K1: key chunks per row block, one CTA cluster (portable limit)
+# K1 splits its keys until the grid has about 4 CTAs per SM of an H100 SXM
+# (132 SMs; a pure function of the shapes, so the plan does not ask the
+# device), keeping at least this many key tiles per chunk: a bf16 tile is
+# one cheap mma.sync pass that does not pay for the cluster merge on its
+# own, an fp32 tile (3xTF32: three products) does (chip_smoke.py
+# ``mma_plans`` times the plan against another in turns).
+H100_SMS = 132
+MMA_FILL_CTAS = 4 * H100_SMS
+MMA_MIN_CHUNK_TILES = {torch.bfloat16: 2, torch.float32: 1}
 
 __all__ = ["NEG_INF", "flash_attention", "flash_attention_with_lse",
            "flash_bwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq",
@@ -148,6 +172,32 @@ def _decode_chunks(sk: int) -> tuple[int, int]:
     return chunk, -(-sk // chunk)
 
 
+def _mma_keys(dtype: torch.dtype, d: int) -> int:
+    """Keys of one K/V tile of K1's mma variant (the kernel's
+    ``tile_keys``): 64, or 32 for fp32 at D = 128."""
+    return 32 if dtype == torch.float32 and d == 128 else 64
+
+
+def _mma_fwd_plan(dtype: torch.dtype, b: int, sq: int, h: int, hkv: int,
+                  d: int, sk: int) -> tuple[int, int, int]:
+    """(warps, chunk_keys, n_chunks) of K1's mma variant, from the shapes
+    alone: CTAs of up to :data:`MMA_MAX_WARPS` warps of 16 packed rows,
+    and the keys cut into at most :data:`MMA_CLUSTER` chunks of at least
+    :data:`MMA_MIN_CHUNK_TILES` whole tiles (one CTA cluster per row
+    block) until the grid has about :data:`MMA_FILL_CTAS` CTAs — a
+    verify pass over a long cache gets 8, a bf16 prefill of a few hundred
+    rows over as many keys 1."""
+    m_tiles = -(-sq * (h // hkv) // MMA_ROWS)
+    warps = min(MMA_MAX_WARPS, m_tiles)
+    ctas = -(-m_tiles // warps) * hkv * b
+    tile = _mma_keys(dtype, d)
+    n_tiles = max(1, -(-sk // tile))
+    want = max(1, min(MMA_CLUSTER, -(-MMA_FILL_CTAS // ctas),
+                      n_tiles // MMA_MIN_CHUNK_TILES[dtype]))
+    per = -(-n_tiles // want)
+    return warps, per * tile, -(-n_tiles // per)
+
+
 def _segment_mask(q_seg, kv_seg):
     if q_seg is None:
         return None
@@ -167,25 +217,32 @@ def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
     packed rows per (batch row, KV head), sq * (h / hkv) <= 16 — every
     serving decode step; "sm90" (wgmma tensor cores) for at least one
     64-row tile of them and a GQA group that divides the tile (TMA loads
-    a tile as a box of 64 / group positions x group heads).  "fma"
-    (split-KV) otherwise: fp32, and the bf16 calls in between."""
+    a tile as a box of 64 / group positions x group heads).  "mma"
+    (mma.sync, any row count and group; 3xTF32 in fp32) otherwise: fp32,
+    bf16 at 17-63 rows (a verify pass) and groups that do not divide 64."""
     rep = h // hkv
     if dtype != torch.bfloat16:
-        return "fma"
+        return "mma"
     if sq * rep <= DECODE_ROWS:
         return "decode"
-    return "sm90" if sq * rep >= TC_ROWS and TC_ROWS % rep == 0 else "fma"
+    return "sm90" if sq * rep >= TC_ROWS and TC_ROWS % rep == 0 else "mma"
 
 
 def dkv_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
-    """Which K3 (dK/dV) kernel a backward launches, and which K2 (dQ):
-    "sm90" for bf16 with a GQA group that divides the 64-row query tile,
-    "fma" otherwise."""
-    return ("sm90" if dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
-            else "fma")
+    """Which K3 (dK/dV) kernel a backward launches: "sm90" for bf16 with a
+    GQA group that divides the 64-row query tile, "mma" (mma.sync; 3xTF32
+    in fp32) otherwise."""
+    return "sm90" if _tc_group(dtype, h, hkv) else "mma"
 
 
-dq_variant = dkv_variant  # K2 follows K3's rule
+def dq_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
+    """Which K2 (dQ) kernel a backward launches: "sm90" as for K3, the
+    fp32 FMA kernel ("fma") otherwise."""
+    return "sm90" if _tc_group(dtype, h, hkv) else "fma"
+
+
+def _tc_group(dtype: torch.dtype, h: int, hkv: int) -> bool:
+    return dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
 
 
 # The C entry points of each library (csrc/<name>.cu) as ctypes sees
@@ -215,6 +272,13 @@ ARGTYPES = {
                                   + [_P], _I),
         "flash_fwd_decode_sm90_error_string": _ERR,
     },
+    "flash_fwd_mma_sm90": {
+        # q k v o lse q_offset q_seg kv_seg; B H Hkv Sq Sk D k_offset
+        # causal; scale; warps chunk_keys n_chunks is_bf16 device; stream
+        "flash_fwd_mma_sm90": ([_P] * 8 + [_I] * 8 + [_F] + [_I] * 5
+                               + [_P], _I),
+        "flash_fwd_mma_sm90_error_string": _ERR,
+    },
     "flash_bwd": {
         # o dout delta; B Sq H D; is_bf16 device; stream
         "flash_bwd_delta": ([_P] * 3 + [_I] * 6 + [_P], _I),
@@ -237,6 +301,13 @@ ARGTYPES = {
         # q_offset k_offset causal; scale; device; stream
         "flash_bwd_dkv_sm90": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
         "flash_bwd_dkv_sm90_error_string": _ERR,
+    },
+    "flash_bwd_dkv_mma_sm90": {
+        # q k v dout lse delta dlse q_seg kv_seg dk dv; B H Hkv Sq Sk D
+        # q_offset k_offset causal; scale; is_bf16 device; stream
+        "flash_bwd_dkv_mma_sm90": ([_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
+                                   _I),
+        "flash_bwd_dkv_mma_sm90_error_string": _ERR,
     },
 }
 
@@ -325,9 +396,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The K1 wrapper. q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (o (B,Sq,H,D),
     lse (B,H,Sq) fp32).  CPU tensors take the plain version; CUDA tensors
     launch the kernel that :func:`fwd_variant` picks, or raise.
-    ``flash_fwd.launches`` counts one per forward on the card (the fma
-    variant's combine pass included), ``launches_by_variant`` the same
-    by variant.  ``block_q``/``block_k`` tile the fma variant only."""
+    ``flash_fwd.launches`` counts one per forward on the card (the old
+    fma kernel's combine pass included), ``launches_by_variant`` the same
+    by variant.  ``block_q``/``block_k`` tile the old fma kernel only."""
     _check_inputs(q, k, v, q_seg, kv_seg)
     bq, bk = _choose_blocks(block_q, block_k)
     if q.device.type == "cpu":
@@ -360,6 +431,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.device.index, stream), "flash_fwd", "flash_fwd_sm90")
     elif variant == "decode":
         _fwd_decode(q, k, v, o, lse, q_off, segs, causal, k_offset, stream)
+    elif variant == "mma":
+        _fwd_mma(q, k, v, o, lse, q_off, segs, causal, k_offset, stream)
     else:
         _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk,
                  stream)
@@ -369,8 +442,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk, stream):
-    """Launches K1's fma variant (``csrc/flash_fwd.cu``), split over the
-    KV walk when its CTAs alone would leave the card idle."""
+    """Launches K1's old fma kernel (``csrc/flash_fwd.cu``; no variant
+    rule picks it since the mma variant), split over the KV walk when its
+    CTAs alone would leave the card idle."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     # A kernel row is one (query position, query head) of a KV head's group.
@@ -417,8 +491,25 @@ def _fwd_decode(q, k, v, o, lse, q_off, segs, causal, k_offset, stream):
         "flash_fwd", "flash_fwd_decode_sm90")
 
 
+def _fwd_mma(q, k, v, o, lse, q_off, segs, causal, k_offset, stream):
+    """Launches K1's mma variant (``csrc/flash_fwd_mma_sm90.cu``): CTAs of
+    1-4 warps of 16 packed rows, the keys cut into the chunks that
+    :func:`_mma_fwd_plan` picks, the chunks of a row block one cluster
+    that merges them on chip."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    warps, chunk_keys, n_chunks = _mma_fwd_plan(q.dtype, b, sq, h, hkv, d, sk)
+    lib = _lib("flash_fwd_mma_sm90")
+    _raise_on(lib, lib.flash_fwd_mma_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), q_off.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        b, h, hkv, sq, sk, d, int(k_offset), int(bool(causal)), d ** -0.5,
+        warps, chunk_keys, n_chunks, int(q.dtype == torch.bfloat16),
+        q.device.index, stream), "flash_fwd", "flash_fwd_mma_sm90")
+
+
 flash_fwd.launches = 0
-flash_fwd.launches_by_variant = {"sm90": 0, "decode": 0, "fma": 0}
+flash_fwd.launches_by_variant = {"sm90": 0, "decode": 0, "mma": 0, "fma": 0}
 
 # ---- backward --------------------------------------------------------------
 
@@ -503,7 +594,8 @@ flash_bwd_delta.launches = 0
 def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
                 k_offset, q_seg, kv_seg):
     """Checks what K2 (which 0) and K3 (which 1) take, allocates their
-    outputs and launches one in the variant :func:`dkv_variant` picks,
+    outputs and launches one in the variant :func:`dq_variant` or
+    :func:`dkv_variant` picks,
     counting it in its wrapper's ``launches`` and ``launches_by_variant``;
     returns (dq,) or (dk, dv).  Empty inputs launch nothing."""
     wrapper = (flash_bwd_dq, flash_bwd_dkv)[which]
@@ -538,12 +630,14 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
             b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
             int(bool(causal)), d ** -0.5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    variant = dkv_variant(q.dtype, h, hkv)
-    if variant == "sm90":
-        library = f"{name}_sm90"
+    variant = (dq_variant, dkv_variant)[which](q.dtype, h, hkv)
+    if variant in ("sm90", "mma"):
+        library = f"{name}_sm90" if variant == "sm90" else f"{name}_mma_sm90"
         lib = _lib(library)
-        _raise_on(lib, getattr(lib, library)(*args, q.device.index, stream),
-                  name, library)
+        extra = (() if variant == "sm90" else
+                 (int(q.dtype == torch.bfloat16),))
+        _raise_on(lib, getattr(lib, library)(*args, *extra, q.device.index,
+                                             stream), name, library)
     else:
         lib = _lib("flash_bwd")
         smem = lib.flash_bwd_smem_bytes(which, d)
@@ -592,7 +686,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 
 flash_bwd_dkv.launches = 0
-flash_bwd_dkv.launches_by_variant = {"sm90": 0, "fma": 0}
+flash_bwd_dkv.launches_by_variant = {"sm90": 0, "mma": 0, "fma": 0}
 
 
 def flash_bwd(q, k, v, o, lse, do, *, dlse=None, causal=True, q_offset=0,
