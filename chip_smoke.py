@@ -13,8 +13,9 @@ Phases, each printed as one JSON line:
    paths (``tpucfn_torch/kernels/csrc/flash_fwd.cu``,
    ``flash_fwd_sm90.cu``, ``flash_fwd_decode_sm90.cu``,
    ``flash_fwd_mma_sm90.cu``, ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu``,
-   ``flash_bwd_dkv_sm90.cu`` and ``flash_bwd_dkv_mma_sm90.cu``) with
-   ``nvcc`` for ``sm_90a``, one process per source, all started together.
+   ``flash_bwd_dq_mma_sm90.cu``, ``flash_bwd_dkv_sm90.cu`` and
+   ``flash_bwd_dkv_mma_sm90.cu``) with ``nvcc`` for ``sm_90a``, one
+   process per source, all started together.
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
    decode and prefill), the training path's (2 x 2048, causal), the
@@ -46,16 +47,18 @@ Phases, each printed as one JSON line:
    no launch).
 4. ``kernel_bwd``: the backward kernels — Delta, K2 (dQ) and K3 (dK/dV)
    — against the plain backward on the same inputs: K2 and K3 on
-   ``sm90`` in bf16 with a GQA group dividing 64; otherwise K3 on ``mma``
-   (mma.sync, 3xTF32 in fp32) and K2 on ``fma`` (fp32 FMA).  At the
-   training shape (llama3-1b, B=2, S=2048, bf16) and the edge cases (D=16
-   GQA 2, D=128 with a query offset and a nonzero dLSE, each in fp32 and
-   bf16; segment ids, empty rows, non-causal ragged lengths, a GQA group
-   of 3); error beside its tolerance, kernel,
-   bound, plain and library ms (the library yardstick is the backward of
-   one ``scaled_dot_product_attention`` call for K2 and K3, and one
-   ``torch.linalg.vecdot`` for Delta); at every K3 ``mma`` shape the old
-   fma K3 kernel is timed beside it in turns and held to the same
+   ``sm90`` in bf16 with a GQA group dividing 64, otherwise on ``mma``
+   (mma.sync, 3xTF32 in fp32).  At the training shape (llama3-1b, B=2,
+   S=2048, bf16) and the edge cases (D=16 GQA 2, D=128 with a query
+   offset and a nonzero dLSE, each in fp32 and bf16; segment ids, empty
+   rows, non-causal ragged lengths, a GQA group of 3, in fp32 also with
+   segment ids and empty rows; 64 queries x GQA 4 over 2048 keys,
+   non-causal, with dLSE, in fp32); error beside its
+   tolerance, kernel, bound, plain and library ms (the library
+   yardstick is the backward of one
+   ``scaled_dot_product_attention`` call for K2 and K3, and one
+   ``torch.linalg.vecdot`` for Delta); at every K2 and K3 ``mma`` shape
+   the old fma kernel is timed beside it in turns and held to the same
    tolerance; an empty call counts no launch.
 5. ``serve_llama3_1b``: ``Server`` -> ``ServeEngine`` -> ``Llama`` at the
    full width and depth of llama3-1b (random weights from a seed) answers
@@ -80,11 +83,11 @@ Phases, each printed as one JSON line:
    bf16 peak, and a profiled step.
 8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
    kernels against the plain path: losses equal to fp32 sum order; every
-   K1 and K3 launch on ``mma``, every K2 launch on ``fma``.
+   K1, K2 and K3 launch on ``mma`` (none on ``fma``).
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
-launched on a path above, and the old fma kernels of K1 and K3, which
-no path reaches, with their times from the turns) and, last, ``{"ok": true, "device": {...}}``.
+launched on a path above, and the old fma kernels of K1, K2 and K3,
+which no path reaches, with their times from the turns) and, last, ``{"ok": true, "device": {...}}``.
 ``--phases device,build,kernel`` (any subset) gives a partial run that
 prints no result line.  Any failed phase exits non-zero before that
 line.  Without a CUDA device, or without the package beside it, the
@@ -108,7 +111,8 @@ PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
-           "flash_bwd_dkv_sm90", "flash_bwd_dkv_mma_sm90")
+           "flash_bwd_dq_mma_sm90", "flash_bwd_dkv_sm90",
+           "flash_bwd_dkv_mma_sm90")
 
 # NVIDIA H100 SXM published peaks (dense), at the full 700 W limit.  An
 # fp32 product is bounded by the FMA units (67 TFLOP/s), except in the mma
@@ -713,10 +717,20 @@ def _bwd_cases(torch):
                                      dtype=bf, k_offset=40)),
         ("non_causal_ragged_d128", dict(b=2, h=8, hkv=8, d=128, sq=200,
                                         sk=300, dtype=bf, causal=False)),
-        # a GQA group of 3 does not divide the 64-row tile: K3 mma and K2
-        # fma in bf16
+        # a GQA group of 3 does not divide the 64-row tile: K2 and K3 mma
+        # in bf16
         ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
                            q_offset=32)),
+        # few rows over many keys, non-causal, with dLSE: 256 packed rows
+        # per (batch row, KV head) walk 32 key tiles
+        ("fp32_long_keys_dlse", dict(b=2, h=8, hkv=2, d=64, sq=64, sk=2048,
+                                     dtype=f32, causal=False, dlse=True)),
+        # the mma variants' masks together: GQA 3, segment ids by global
+        # position, and the 40 positions before k_offset that see no key
+        # (P = 0, dQ = 0)
+        ("fp32_gqa3_segments_empty_rows", dict(
+            b=2, h=6, hkv=2, d=64, sq=128, sk=128, dtype=f32, k_offset=40,
+            segments=True)),
     ]
 
 
@@ -763,7 +777,8 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
     q_seg = kv_seg = None
     if segments:
         q_seg = (torch.arange(sq, device="cuda") // 48).int()[None].expand(b, sq).contiguous()
-        kv_seg = (torch.arange(sk, device="cuda") // 48).int()[None].expand(b, sk).contiguous()
+        # keys segmented by global position, k_offset + index, as queries
+        kv_seg = ((torch.arange(sk, device="cuda") + k_offset) // 48).int()[None].expand(b, sk).contiguous()
     o, lse = fa.flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
                           k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg)
     kw = dict(dlse=dl, causal=causal, q_offset=q_offset, k_offset=k_offset,
@@ -842,23 +857,30 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
     }
     for n, variant in variants.items():
         rows_out[n]["variant"] = variant
-    if variants["dkv"] == "mma":
-        # The old fma K3 kernel (on no path now) beside mma in turns on
-        # these inputs, held to the same tolerance (bound against the FMA
-        # units' rate).
-        def dkv():
-            return fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
-        times, outs = _in_turns(timer, dkv, "dkv_variant",
+    def dq():
+        return (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),)
+
+    def dkv():
+        return fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+    # At every mma shape the old fma kernel of K2 or K3 (on no path now)
+    # beside mma in turns on these inputs, held to the same tolerance
+    # (bound against the FMA units' rate).
+    for key, call, names in (("dq", dq, ("dq",)), ("dkv", dkv, ("dk", "dv"))):
+        if variants[key] != "mma":
+            continue
+        refs = ref[:1] if key == "dq" else ref[1:]
+        times, outs = _in_turns(timer, call, f"{key}_variant",
                                 ("fma", "mma", "mma", "fma"))
-        f_ok, f_err, _ = _bwd_errs({"dk": (outs["fma"][0], ref[1]),
-                                    "dv": (outs["fma"][1], ref[2])}, dtype)
-        rows_out["dkv"]["fma_beside"] = {
+        f_ok, f_err, _ = _bwd_errs(dict(zip(names, zip(outs["fma"], refs))),
+                                   dtype)
+        rows_out[key]["fma_beside"] = {
             "fma_ms": times["fma"], "mma_ms": times["mma"],
             "max_abs_err": f_err, "ok": f_ok,
-            **_bound(rows_out["dkv"]["bytes"], rows_out["dkv"]["flops"],
+            **_bound(rows_out[key]["bytes"], rows_out[key]["flops"],
                      PEAK_FLOPS[str(dtype)])}
-        rows_out["dkv"]["ok"] = rows_out["dkv"]["ok"] and f_ok
+        rows_out[key]["ok"] = rows_out[key]["ok"] and f_ok
     return {"case": label, "shape": dict(
         b=b, h=h, hkv=hkv, d=d, sq=sq, sk=sk, dtype=str(dtype), causal=causal,
         q_offset=q_offset, k_offset=k_offset, segments=segments, dlse=dlse),
@@ -913,7 +935,7 @@ def phase_kernel_bwd(results):
                              f"backward: {bad}")
     if any(c.launches == n for c, n in zip(counters, before)):
         raise AssertionError("the comparisons never launched a kernel")
-    for key, kernel, want in (("dq", "K2", {"sm90", "fma"}),
+    for key, kernel, want in (("dq", "K2", {"sm90", "mma"}),
                               ("dkv", "K3", {"sm90", "mma"})):
         missing = want - {r[key]["variant"] for r in rows}
         if missing:
@@ -1146,7 +1168,7 @@ def _launch_counts():
             "delta": fa.flash_bwd_delta.launches,
             "k1_sm90": k1["sm90"], "k1_decode": k1["decode"],
             "k1_mma": k1["mma"], "k1_fma": k1["fma"],
-            "k2_sm90": k2["sm90"], "k2_fma": k2["fma"],
+            "k2_sm90": k2["sm90"], "k2_mma": k2["mma"], "k2_fma": k2["fma"],
             "k3_sm90": k3["sm90"], "k3_mma": k3["mma"], "k3_fma": k3["fma"]}
 
 
@@ -1249,7 +1271,7 @@ def phase_train_llama3_1b(results):
     expected = {k: n * cfg.n_layers for k, n in LAUNCHES_PER_LAYER.items()}
     # Every K1, K2 and K3 launch of the step on the tensor-core variants.
     expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_mma=0,
-                    k1_fma=0, k2_sm90=expected["k2"], k2_fma=0,
+                    k1_fma=0, k2_sm90=expected["k2"], k2_mma=0, k2_fma=0,
                     k3_sm90=expected["k3"], k3_mma=0, k3_fma=0)
     assert all(c == expected for c in per_step), (per_step, expected)
     assert all(map(math.isfinite, losses)), losses
@@ -1310,8 +1332,8 @@ def phase_train_tiny_fp32(results):
     assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
     assert all(k_counts[k] == 6 * n * cfg.n_layers
                for k, n in LAUNCHES_PER_LAYER.items()), k_counts
-    # fp32 runs K1 and K3 on mma (3xTF32), K2 on fma
-    assert (k_counts["k1_mma"], k_counts["k2_fma"], k_counts["k3_mma"]) == (
+    # fp32 runs K1, K2 and K3 on mma (3xTF32), none on fma
+    assert (k_counts["k1_mma"], k_counts["k2_mma"], k_counts["k3_mma"]) == (
         k_counts["k1"], k_counts["k2"], k_counts["k3"]), k_counts
     assert not any(p_counts.values()), p_counts
     results["train_tiny_launches"] = k_counts
@@ -1389,9 +1411,12 @@ def _kernels_line(results):
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
               {"train_llama3_1b": train["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
-        entry("flash_bwd_dq_fma", "flash_bwd.cu", 248,
-              {"train_tiny_fp32": tiny["k2_fma"]},
-              of(bwd, "fma", "dq"), "fp32_d16_gqa2", "dq"),
+        entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
+              {"train_tiny_fp32": tiny["k2_mma"]},
+              of(bwd, "mma", "dq"), "fp32_d16_gqa2", "dq"),
+        # on no path: timed beside mma in turns
+        entry("flash_bwd_dq_fma", "flash_bwd.cu", 248, {},
+              fma_beside(of(bwd, "mma", "dq"), "dq"), "fp32_d16_gqa2"),
         entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
               {"train_llama3_1b": train["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
@@ -1403,7 +1428,7 @@ def _kernels_line(results):
               fma_beside(of(bwd, "mma", "dkv"), "dkv"), "fp32_d16_gqa2"),
     ]
     # A kernel of a path that no run of that path launched fails the line
-    # (the old fma kernels of K1 and K3 have no path).
+    # (the old fma kernels of K1, K2 and K3 have no path).
     idle = [k["name"] for k in kernels
             if k["launches_by_path"] and not k["launches"]]
     if idle:

@@ -120,12 +120,12 @@ def test_flash_with_lse_grads_carry_dlse(rep, sq, sk, q_offset):
 
 @pytest.mark.parametrize("with_dlse", [False, True])
 def test_gqa3_grads_match_jax(with_dlse):
-    """A GQA group of 3 (H=6, Hkv=2): K3's mma variant and K2's fma in
+    """A GQA group of 3 (H=6, Hkv=2): K2's and K3's mma variants in
     either dtype; with LSE consumed too, dLSE feeds dS."""
     q, k, v, w = _arrays(sq=12, sk=20, hq=6, hkv=2, seed=6)
     w_lse = np.random.RandomState(7).randn(2, 12, 6).astype(np.float32)
     assert (fa.dkv_variant(torch.bfloat16, 6, 2),
-            fa.dq_variant(torch.bfloat16, 6, 2)) == ("mma", "fma")
+            fa.dq_variant(torch.bfloat16, 6, 2)) == ("mma", "mma")
     tq, tk, tv = _leaves(q, k, v)
     o, lse = fa.flash_attention_with_lse(tq, tk, tv, q_offset=8)
     loss = (o * torch.from_numpy(w)).sum()
@@ -137,6 +137,32 @@ def test_gqa3_grads_match_jax(with_dlse):
         jo, jl = jax_flash_lse(q, k, v, q_offset=8, block_q=8, block_k=8,
                                interpret=True)
         return jnp.sum(jo * w) + (jnp.sum(jl * w_lse) if with_dlse else 0.0)
+
+    ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, r in zip(grads, ref):
+        assert torch.isfinite(g).all()
+        _close(g, r)
+
+
+@pytest.mark.parametrize("sq,sk", [(8, 256), (5, 200), (12, 136)])
+def test_long_keys_with_dlse_grads_match_jax(sq, sk):
+    """Few rows (GQA 4) over many keys, some ragged, non-causal, both
+    outputs consumed, in fp32 (K2's and K3's mma variants on the card):
+    ``chip_smoke.py``'s ``fp32_long_keys_dlse`` holds the kernels against
+    this plain path."""
+    q, k, v, w = _arrays(sq=sq, sk=sk, hq=8, hkv=2, seed=10)
+    w_lse = np.random.RandomState(11).randn(2, sq, 8).astype(np.float32)
+    assert fa.dq_variant(torch.float32, 8, 2) == "mma"
+    tq, tk, tv = _leaves(q, k, v)
+    o, lse = fa.flash_attention_with_lse(tq, tk, tv, causal=False)
+    loss = (o * torch.from_numpy(w)).sum() + (lse * torch.from_numpy(w_lse)).sum()
+    grads = torch.autograd.grad(loss, (tq, tk, tv))
+
+    def jloss(q, k, v):
+        jo, jl = jax_flash_lse(q, k, v, causal=False, block_q=32,
+                               block_k=128, interpret=True)
+        return jnp.sum(jo * w) + jnp.sum(jl * w_lse)
 
     ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))

@@ -117,12 +117,24 @@ def test_dkv_variant(dtype, h, hkv, want):
     (BF, 32, 8, "sm90"),    # llama3-1b training: a group of 4
     (BF, 4, 2, "sm90"),     # tiny shape in bf16: a group of 2
     (BF, 8, 8, "sm90"),     # no GQA: a group of 1
-    (F32, 32, 8, "fma"),    # K2 keeps its fp32 FMA kernel (no TF32)
-    (BF, 6, 2, "fma"),      # a group of 3 does not divide the tile
-    (BF, 128, 1, "fma"),    # a group of 128 exceeds the tile
+    (F32, 32, 8, "mma"),    # fp32: 3xTF32, never plain TF32
+    (BF, 6, 2, "mma"),      # a group of 3 does not divide the tile
+    (BF, 128, 1, "mma"),    # a group of 128 exceeds the tile
+] + [
+    # every group from 1 to 128 in either dtype: sm90 only for bf16 groups
+    # that divide the 64-row tile
+    (dtype, 2 * rep, 2,
+     "sm90" if dtype == BF and rep in (1, 2, 4, 8, 16, 64) else "mma")
+    for dtype in (BF, F32) for rep in (1, 2, 3, 4, 5, 8, 16, 64, 128)
 ])
 def test_dq_variant(dtype, h, hkv, want):
     assert fa.dq_variant(dtype, h, hkv) == want
+
+
+def test_backward_variants_agree():
+    """K2 and K3 take one variant rule: the dQ and dK/dV kernels of one
+    backward are the same design."""
+    assert fa.dq_variant is fa.dkv_variant
 
 
 def test_decode_planner_fits_the_kernel():
@@ -155,6 +167,15 @@ def test_mma_planner_fits_the_kernel():
     assert int(const["kWarpKeys"]) == fa.MMA_ROWS and int(const["kWarps"]) == 4
 
 
+def test_mma_dq_kernel_tiles_rows_as_k1_mma():
+    """K2 mma tiles its rows as K1 mma does: 16 packed rows a warp, at
+    most 4 warps a CTA."""
+    src = (_build.CSRC / "flash_bwd_dq_mma_sm90.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kRowsPerWarp"]) == fa.MMA_ROWS
+    assert int(const["kMaxWarps"]) == fa.MMA_MAX_WARPS
+
+
 @pytest.mark.parametrize("dtype,b,sq,h,hkv,d,sk,want", [
     # verify passes over llama3-1b's 2048-key cache: 20 and 36 rows
     (BF, 8, 5, 32, 8, 64, 2048, (2, 256, 8)),
@@ -182,6 +203,8 @@ def test_cpu_calls_count_no_launch():
     by_variant = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     assert set(fa.flash_fwd.launches_by_variant) == {"sm90", "decode", "mma",
                                                      "fma"}
+    for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert set(w.launches_by_variant) == {"sm90", "mma", "fma"}
     before = ([w.launches for w in wrappers],
               [dict(w.launches_by_variant) for w in by_variant])
     assert fa.fwd_variant(BF, 1, 4, 2) == "decode"

@@ -72,6 +72,7 @@ using sm90::mma1688_3xtf32;
 using sm90::pack_bf16;
 using sm90::smem_u32;
 using sm90::split_tf32;
+using sm90::store2;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -124,14 +125,6 @@ struct Cfg {
     else return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
   }
 };
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b) {
-  if constexpr (std::is_same<T, float>::value)
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-  else
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const Params p) {

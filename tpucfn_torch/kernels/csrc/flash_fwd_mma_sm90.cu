@@ -84,6 +84,8 @@ using sm90::mma1688_3xtf32;
 using sm90::pack_bf16;
 using sm90::smem_u32;
 using sm90::split_tf32;
+using sm90::store2;
+using sm90::store4;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -140,22 +142,6 @@ struct Cfg {
     else return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
   }
 };
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b) {
-  if constexpr (std::is_same<T, float>::value)
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-  else
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d) {
-  if constexpr (std::is_same<T, float>::value)
-    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-  else
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
-}
 
 // The live CTAs of a cluster merge their n_live partials (rows [row0,
 // row0 + rows) of a row block) into O and LSE together: CTA `rank` takes

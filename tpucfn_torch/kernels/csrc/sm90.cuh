@@ -3,9 +3,9 @@
 // tensor maps and loads,
 // mbarriers, and warpgroup matrix multiplies (wgmma) with their shared
 // memory descriptors; and for the mma.sync kernels (flash_fwd_decode_sm90.cu,
-// flash_fwd_mma_sm90.cu, flash_bwd_dkv_mma_sm90.cu) cp.async, ldmatrix,
-// mma.sync in bf16 and in tf32, and the 3xTF32 split.  Plain inline PTX;
-// no CUTLASS.
+// flash_fwd_mma_sm90.cu, flash_bwd_dq_mma_sm90.cu, flash_bwd_dkv_mma_sm90.cu)
+// cp.async, ldmatrix, mma.sync in bf16 and in tf32, the 3xTF32 split and
+// the result stores.  Plain inline PTX; no CUTLASS.
 //
 // Shared-memory tiles.  A tile of R rows x D bf16 values is loaded by TMA
 // with the swizzle that its row width allows: a D = 64 row is 128 bytes,
@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -402,6 +404,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void a_frag(const float* acc, int kk, uint32_t* a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) a[i] = pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+}
+
+// Two or four consecutive fp32 results stored as T (float or bf16), in one
+// 8- or 16-byte (fp32) or 4- or 8-byte (bf16) store: the mma kernels' output.
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
 }
 
 }  // namespace sm90

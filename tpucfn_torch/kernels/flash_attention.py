@@ -18,18 +18,19 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
   speculative-decoding verify pass) and groups that do not divide 64;
 * the backward: Delta = rowsum(dO*O) (:func:`flash_bwd_delta`,
   ``csrc/flash_bwd.cu``), K2 ``_bwd_dq_kernel`` (:func:`flash_bwd_dq`) and
-  K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`).  For bf16 with a GQA
-  group that divides 64 both run ``csrc/flash_bwd_dq_sm90.cu`` and
-  ``csrc/flash_bwd_dkv_sm90.cu`` ("sm90": wgmma fed by TMA); otherwise
-  K3 runs ``csrc/flash_bwd_dkv_mma_sm90.cu`` ("mma": mma.sync, 3xTF32 in
-  fp32; :func:`dkv_variant`) and K2 the fp32 FMA kernel of
-  ``csrc/flash_bwd.cu`` ("fma"; :func:`dq_variant`).
+  K3 ``_bwd_dkv_kernel`` (:func:`flash_bwd_dkv`), both in the variant
+  :func:`dkv_variant` picks (:func:`dq_variant` is the same rule).  For
+  bf16 with a GQA group that divides 64 they run
+  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``
+  ("sm90": wgmma fed by TMA); otherwise ``csrc/flash_bwd_dq_mma_sm90.cu``
+  and ``csrc/flash_bwd_dkv_mma_sm90.cu`` ("mma": mma.sync, 3xTF32 in
+  fp32).
   :func:`flash_bwd` runs the three.
 
-K1's and K3's older FMA kernels (``csrc/flash_fwd.cu``, and
-``flash_bwd_dkv`` in ``csrc/flash_bwd.cu``) are reached by no variant
-rule; ``chip_smoke.py`` times them beside ``mma`` by overriding the rule
-for a call.
+The older FMA kernels of K1, K2 and K3 (``csrc/flash_fwd.cu``, and
+``flash_bwd_dq`` and ``flash_bwd_dkv`` in ``csrc/flash_bwd.cu``) are
+reached by no variant rule; ``chip_smoke.py`` times them beside ``mma``
+by overriding the rule for a call.
 
 The decode variant reads nothing back to the host and keeps no state
 between launches, and its grid depends on the shapes alone, so one call
@@ -65,7 +66,8 @@ table holds TPU measurements and is not carried over.  The sm90 forward
 tiles 64 rows by 128 keys (64 at D = 128) and the backward kernels 64 x
 64, fixed in their sources; the decode variant's key chunks come from
 :func:`_decode_chunks`, K1 mma's tiles and chunks from
-:func:`_mma_fwd_plan`; K3 mma takes 16 keys a CTA, fixed in its source.
+:func:`_mma_fwd_plan`; K2 mma takes 64 keys a tile (32 at D = 128) and
+K3 mma 16 keys a CTA, fixed in their sources.
 Padding to a block is never materialized: the kernels mask the ragged
 edge themselves.
 """
@@ -92,9 +94,10 @@ DECODE_ROWS = 16  # packed rows of the decode variant: one mma.sync M
 # cluster limit.  chip_smoke.py's ``decode_chunking`` holds 8 against 4 at
 # the serving phase's decode offsets and at spread offsets.
 DECODE_CLUSTER = 8
-# The mma variants (csrc/flash_fwd_mma_sm90.cu, csrc/flash_bwd_dkv_mma_sm90.cu).
+# The mma variants (csrc/flash_fwd_mma_sm90.cu, csrc/flash_bwd_dq_mma_sm90.cu,
+# csrc/flash_bwd_dkv_mma_sm90.cu).
 MMA_ROWS = 16  # packed rows of one warp: one mma.sync M tile
-MMA_MAX_WARPS = 4  # K1: M tiles (warps) per CTA
+MMA_MAX_WARPS = 4  # K1 and K2: M tiles (warps) per CTA
 MMA_CLUSTER = 8  # K1: key chunks per row block, one CTA cluster (portable limit)
 # K1 splits its keys until the grid has about 4 CTAs per SM of an H100 SXM
 # (132 SMs; a pure function of the shapes, so the plan does not ask the
@@ -229,20 +232,15 @@ def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
 
 
 def dkv_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
-    """Which K3 (dK/dV) kernel a backward launches: "sm90" for bf16 with a
-    GQA group that divides the 64-row query tile, "mma" (mma.sync; 3xTF32
-    in fp32) otherwise."""
-    return "sm90" if _tc_group(dtype, h, hkv) else "mma"
+    """Which K3 (dK/dV) kernel a backward launches, and K2 (dQ) with it:
+    "sm90" for bf16 with a GQA group that divides the 64-row query tile,
+    "mma" (mma.sync; 3xTF32 in fp32) otherwise."""
+    return ("sm90" if dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
+            else "mma")
 
 
-def dq_variant(dtype: torch.dtype, h: int, hkv: int) -> str:
-    """Which K2 (dQ) kernel a backward launches: "sm90" as for K3, the
-    fp32 FMA kernel ("fma") otherwise."""
-    return "sm90" if _tc_group(dtype, h, hkv) else "fma"
-
-
-def _tc_group(dtype: torch.dtype, h: int, hkv: int) -> bool:
-    return dtype == torch.bfloat16 and TC_ROWS % (h // hkv) == 0
+# K2 takes K3's variant: the two backward kernels cannot drift apart.
+dq_variant = dkv_variant
 
 
 # The C entry points of each library (csrc/<name>.cu) as ctypes sees
@@ -301,6 +299,13 @@ ARGTYPES = {
         # q_offset k_offset causal; scale; device; stream
         "flash_bwd_dkv_sm90": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
         "flash_bwd_dkv_sm90_error_string": _ERR,
+    },
+    "flash_bwd_dq_mma_sm90": {
+        # q k v dout lse delta dlse q_seg kv_seg dq; B H Hkv Sq Sk D
+        # q_offset k_offset causal; scale; is_bf16 device; stream
+        "flash_bwd_dq_mma_sm90": ([_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
+                                  _I),
+        "flash_bwd_dq_mma_sm90_error_string": _ERR,
     },
     "flash_bwd_dkv_mma_sm90": {
         # q k v dout lse delta dlse q_seg kv_seg dk dv; B H Hkv Sq Sk D
@@ -668,7 +673,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 
 flash_bwd_dq.launches = 0
-flash_bwd_dq.launches_by_variant = {"sm90": 0, "fma": 0}
+flash_bwd_dq.launches_by_variant = {"sm90": 0, "mma": 0, "fma": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
