@@ -84,6 +84,26 @@ Phases, each printed as one JSON line:
 8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
    kernels against the plain path: losses equal to fp32 sum order; every
    K1, K2 and K3 launch on ``mma`` (none on ``fma``).
+9. ``example_llama3_1b``: the port's example
+   (``tpucfn_torch/examples/llama3_8b_fsdp.py``) through its
+   ``main(argv)``, run dirs in a temp dir (free space printed first,
+   the dir deleted at the end): ``flash_autotune.tune`` at the example's
+   family (S 2048, D 64, bf16, causal) beside the committed table entry;
+   ``--model 1b --seq-len 2048 --batch-size 2 --steps 10 --num-examples
+   2`` at full width and depth (one batch, trained on at every step: 10
+   finite losses, the last below the first; every step
+   32/16/16/16 K1/K2/K3/Delta launches, all on ``sm90``, so the default
+   attention went to the kernels; its checkpoints, the loop's steady
+   step against ``train_llama3_1b``'s bare step with step 1's checkpoint
+   write in flight and, once it is durable, without, tokens/s, data
+   wait, the MFU gauge, peak memory); a resume at full width and 2 layers
+   (``--stop-after 3``, relaunched to 6: resumed at step 3, losses of
+   steps 4-6 within 1e-3 relative of an uninterrupted run); and
+   ``--packed`` at 2 layers for 3 steps (finite losses; every flash call
+   with segment ids, K1, K2 and K3 on ``sm90`` in every layer; then K1,
+   Delta, K2 and K3 held against their plain versions at that shape with
+   the run's segment ids: error, kernel, bound, plain and library times,
+   rows beside each kernel's others in the kernels line).
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
 launched on a path above, and the old fma kernels of K1, K2 and K3,
@@ -107,7 +127,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
-          "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32")
+          "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32",
+          "example_llama3_1b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -374,7 +395,9 @@ def _in_turns(timer, call, attr, values):
 
 
 def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
-              k_offset=0, causal=True, segments=False):
+              k_offset=0, causal=True, segments=False, seg_ids=None):
+    """``seg_ids``: (B, S) segment ids for queries and keys alike (a packed
+    batch's), in place of the 48-position documents of ``segments``."""
     import torch.nn.functional as F
 
     from tpucfn_torch.kernels import flash_attention as fa
@@ -387,7 +410,11 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
     q_off = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
     q_seg = kv_seg = mask = None
-    if segments:  # documents of 48 positions, by global position
+    if seg_ids is not None:
+        segments = True
+        q_seg = kv_seg = seg_ids.to("cuda", torch.int32).contiguous()
+        mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
+    elif segments:  # documents of 48 positions, by global position
         q_seg = ((q_off[:, None] + torch.arange(sq, device="cuda")) // 48).int()
         kv_seg = ((torch.arange(sk, device="cuda") + k_offset) // 48).int()[None].expand(b, sk).contiguous()
         mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
@@ -762,7 +789,9 @@ def _err_row(pairs, dtype, ms, plain_ms, library_ms, bytes_, flops,
 
 
 def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
-              k_offset=0, causal=True, segments=False, dlse=False):
+              k_offset=0, causal=True, segments=False, dlse=False,
+              seg_ids=None):
+    """``seg_ids`` as in :func:`_one_case`."""
     import torch.nn.functional as F
 
     from tpucfn_torch.kernels import flash_attention as fa
@@ -775,7 +804,10 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
     dl = (torch.randn(b, h, sq, generator=g, device="cuda") if dlse
           else None)
     q_seg = kv_seg = None
-    if segments:
+    if seg_ids is not None:
+        segments = True
+        q_seg = kv_seg = seg_ids.to("cuda", torch.int32).contiguous()
+    elif segments:
         q_seg = (torch.arange(sq, device="cuda") // 48).int()[None].expand(b, sq).contiguous()
         # keys segmented by global position, k_offset + index, as queries
         kv_seg = ((torch.arange(sk, device="cuda") + k_offset) // 48).int()[None].expand(b, sk).contiguous()
@@ -1278,6 +1310,7 @@ def phase_train_llama3_1b(results):
     assert losses[-1] < losses[0], losses
 
     steady = sum(step_s[1:]) / (steps - 1)
+    results["train_step_ms"] = steady * 1e3
     tokens = b * seq
     matmul_params = n_params - cfg.vocab_size * cfg.dim \
         - (2 * cfg.n_layers + 1) * cfg.dim  # no embedding lookup, no norms
@@ -1343,6 +1376,283 @@ def phase_train_tiny_fp32(results):
             "kernel_launches": k_counts}
 
 
+# ---- phase 9 ---------------------------------------------------------------
+EXAMPLE_LOSS_REL_TOL = 1e-3  # a relaunch's losses against an uninterrupted run
+
+
+class _SegmentCalls:
+    """Counts the flash calls that carry segment ids (the packed path),
+    by wrapping ``flash_attention`` while a run lasts."""
+
+    def __init__(self, fa):
+        self.fa, self.real, self.count = fa, fa.flash_attention, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            if kw.get("segment_ids") is not None:
+                self.count += 1
+            return self.real(*a, **kw)
+
+        self.fa.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.real
+
+
+class _WaitForSaveBefore:
+    """While a run lasts, the loop's checkpoint call after step ``step - 1``
+    first waits for the write in flight to be durable, so step ``step``
+    on runs with none."""
+
+    def __init__(self, step):
+        from tpucfn_torch.ckpt import CheckpointManager
+
+        self.cls, self.real, self.step = (CheckpointManager,
+                                          CheckpointManager.save, step)
+
+    def __enter__(self):
+        def save(mgr, step, state, **kw):
+            if step == self.step - 1:
+                mgr.wait()
+            return self.real(mgr, step, state, **kw)
+
+        self.cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.real
+
+
+def _run_example(argv, per_step=None):
+    """The port's example through its ``main(argv)``; its stdout is kept
+    (and returned) and each ``Trainer.step``'s launches are appended to
+    ``per_step``."""
+    import contextlib
+    import io
+
+    from tpucfn_torch.examples import llama3_8b_fsdp as ex
+    from tpucfn_torch.train import trainer as tr
+
+    real_step = tr.Trainer.step
+
+    def counted(self, state, batch):
+        before = _launch_counts()
+        out = real_step(self, state, batch)
+        after = _launch_counts()
+        if per_step is not None:
+            per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    out = io.StringIO()
+    tr.Trainer.step = counted
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = ex.main(argv)
+    finally:
+        tr.Trainer.step = real_step
+    assert rc == 0, out.getvalue()[-2000:]
+    return out.getvalue()
+
+
+def _run_record(run_dir):
+    """Losses, time_to_first_step and trace spans of a finished run."""
+    from tpucfn_torch.obs.trace import read_trace_dir
+
+    rows = [json.loads(line) for line in
+            (run_dir / "logs" / "train-host000.jsonl").read_text().splitlines()]
+    spans = read_trace_dir(run_dir / "trace")
+
+    def named(name):
+        return [r for r in spans if r["name"] == name]
+
+    return {"losses": {r["step"]: r["loss"] for r in rows if "loss" in r},
+            "time_to_first_step": next(r["time_to_first_step"] for r in rows
+                                       if "time_to_first_step" in r),
+            "step_s": [r["dur_s"] for r in named("step")],
+            "step_spans": [(r["trace_id"], r["start"], r["dur_s"])
+                           for r in named("step")],
+            "data_wait_s": [r["dur_s"] for r in named("data_wait")],
+            "ckpt_call_s": [r["dur_s"] for r in named("ckpt")],
+            "ckpt_write": [{"step": r["trace_id"], "start": r["start"],
+                            "s": r["dur_s"],
+                            "stage_s": r["attrs"]["stage_s"],
+                            "bytes": r["attrs"]["bytes"]}
+                           for r in named("ckpt_write")],
+            "ckpt_restore": [{"step": r["trace_id"], "s": r["dur_s"],
+                              "bytes": r["attrs"]["bytes"]}
+                             for r in named("ckpt_restore")]}
+
+
+def phase_example_llama3_1b(results):
+    """The port's example, ``python tpucfn_torch/examples/llama3_8b_fsdp.py``,
+    through its ``main(argv)``: the dispatch table's family re-tuned, a
+    full-depth llama3-1b run, a resume, and a packed run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpucfn_torch.data import ShardedDataset
+    from tpucfn_torch.kernels import flash_attention as fa
+    from tpucfn_torch.kernels import flash_autotune
+    from tpucfn_torch.obs.registry import default_registry
+
+    root = Path(tempfile.mkdtemp(prefix="example_llama3_1b-"))
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(f"example_llama3_1b: {free_gb:.1f} GB free under {root}",
+          flush=True)
+    out = {"card": results.get("card"), "disk_free_gb": free_gb}
+    base = ["--model", "1b", "--seq-len", "2048", "--batch-size", "2",
+            "--log-every", "1"]
+    try:
+        # 1. the example's family, tuned now beside the committed entry
+        t = flash_autotune.tune(2048, 64, persist=False)
+        out["tune"] = {**t, "committed_speedup": flash_autotune.lookup_speedup(
+            2048, 64, torch.bfloat16, True)}
+        print(json.dumps({"example_tune": out["tune"]}), flush=True)
+
+        # 2. full width and depth, 10 steps, the final force-save.  Two
+        # examples, so every step trains on the same batch: a fresh batch
+        # each step cannot show learning in a few steps (the synthetic
+        # sequences follow a permutation of the 128256-token vocabulary,
+        # learned pair by pair), a repeated one must.  Step 1's save (the
+        # directory's first) is written while steps 2-5 run; the loop then
+        # waits for it to be durable, so steps 6-10 run with no write in
+        # flight.
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = []
+        _zero_launch_counts()
+        with _WaitForSaveBefore(6):
+            text = _run_example(base + ["--steps", "10", "--num-examples",
+                                        "2", "--run-dir", str(root / "full")],
+                                per_step)
+        results["example_launches"] = _launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rec = _run_record(root / "full")
+        losses = [rec["losses"][i] for i in range(1, 11)]
+        assert all(map(math.isfinite, losses)), losses
+        assert losses[-1] < losses[0], losses
+        expected = {k: n * 16 for k, n in LAUNCHES_PER_LAYER.items()}
+        expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_mma=0,
+                        k1_fma=0, k2_sm90=expected["k2"], k2_mma=0, k2_fma=0,
+                        k3_sm90=expected["k3"], k3_mma=0, k3_fma=0)
+        assert len(per_step) == 10 and all(c == expected for c in per_step), (
+            per_step, expected)
+        assert peak_gib < 80, peak_gib
+        # The steady steps (3 on), split by whether a checkpoint write
+        # overlapped them.
+        writes = [(w["start"], w["start"] + w["s"]) for w in rec["ckpt_write"]]
+        windows = {True: [], False: []}
+        for step, start, dur in rec["step_spans"]:
+            if step >= 3:
+                windows[any(a < start + dur and start < b
+                            for a, b in writes)].append((step, dur))
+        assert windows[False], (rec["step_spans"], writes)
+        mfu = default_registry().metrics()["train_mfu"].value
+        final = [line for line in text.splitlines()
+                 if line.startswith("final:")][0]
+        bare = results.get("train_step_ms")
+
+        def loop(window):
+            if not window:
+                return None
+            ms = sum(d for _, d in window) / len(window) * 1e3
+            return {"steps": [s for s, _ in window], "step_ms": ms,
+                    "loop_cost_ms": None if bare is None else ms - bare,
+                    "tokens_per_s": 2 * 2048 / (ms / 1e3)}
+
+        out["full"] = {
+            "losses": losses, "launches_per_step": per_step[-1],
+            "launches_expected_per_step": expected,
+            "time_to_first_step_s": rec["time_to_first_step"],
+            "step_ms": [x * 1e3 for x in rec["step_s"]],
+            "bare_trainer_step_ms": bare,
+            "loop_no_write_in_flight": loop(windows[False]),
+            "loop_write_in_flight": loop(windows[True]),
+            "final_line": final,
+            "data_wait_ms_mean": sum(rec["data_wait_s"]) * 1e3
+            / len(rec["data_wait_s"]),
+            "data_wait_ms": [x * 1e3 for x in rec["data_wait_s"]],
+            "mfu_gauge": mfu, "ckpt_call_s": rec["ckpt_call_s"],
+            "ckpt_write": rec["ckpt_write"], "peak_mem_gib": peak_gib}
+        print(json.dumps({"example_full": out["full"]}), flush=True)
+        shutil.rmtree(root / "full")
+
+        # 3. resume, at full width and 2 layers
+        two = base + ["--layers", "2"]
+        _run_example(two + ["--steps", "6", "--run-dir", str(root / "whole")])
+        whole = _run_record(root / "whole")["losses"]
+        shutil.rmtree(root / "whole")
+        cut = root / "cut"
+        _run_example(two + ["--steps", "6", "--stop-after", "3",
+                            "--run-dir", str(cut)])
+        text = _run_example(two + ["--steps", "6", "--run-dir", str(cut)])
+        assert "resumed from step 3" in text, text[-2000:]
+        rec = _run_record(cut)
+        rel = [abs(rec["losses"][i] - whole[i]) / abs(whole[i])
+               for i in (4, 5, 6)]
+        assert max(rel) <= EXAMPLE_LOSS_REL_TOL, (rec["losses"], whole)
+        out["resume"] = {
+            "resumed_at": 3, "losses_relaunch": [rec["losses"][i]
+                                                 for i in (4, 5, 6)],
+            "losses_uninterrupted": [whole[i] for i in (4, 5, 6)],
+            "max_rel_diff": max(rel), "exactly_equal": max(rel) == 0.0,
+            "rel_tol": EXAMPLE_LOSS_REL_TOL,
+            "ckpt_restore": rec["ckpt_restore"],
+            "ckpt_write": rec["ckpt_write"]}
+        print(json.dumps({"example_resume": out["resume"]}), flush=True)
+        shutil.rmtree(cut)
+
+        # 4. packed, the kernels' segment paths in every layer
+        _zero_launch_counts()
+        per_step = []
+        with _SegmentCalls(fa) as seg_calls:
+            _run_example(two + ["--packed", "--steps", "3", "--run-dir",
+                                str(root / "packed")], per_step)
+        results["example_packed_launches"] = _launch_counts()
+        rec = _run_record(root / "packed")
+        losses = [rec["losses"][i] for i in (1, 2, 3)]
+        assert all(map(math.isfinite, losses)), losses
+        expected = {k: n * 2 for k, n in LAUNCHES_PER_LAYER.items()}
+        expected.update(k1_sm90=expected["k1"], k1_decode=0, k1_mma=0,
+                        k1_fma=0, k2_sm90=expected["k2"], k2_mma=0, k2_fma=0,
+                        k3_sm90=expected["k3"], k3_mma=0, k3_fma=0)
+        assert all(c == expected for c in per_step), (per_step, expected)
+        # every flash call of the run carried segment ids
+        assert seg_calls.count == 3 * expected["k1"], seg_calls.count
+        # K1, Delta, K2 and K3 at this path's shape with its first
+        # batch's segment ids, beside the other rows of their kernels
+        ds = ShardedDataset(sorted((root / "packed" / "data").glob(
+            "*.tpurec")), batch_size_per_process=2, seed=0)
+        segments = torch.as_tensor(next(ds.batches(1))["segments"])
+        timer = Timer(torch)
+        fwd = _one_case(torch, timer, "packed_llama3_1b", 2, 32, 8, 64,
+                        2048, 2048, torch.bfloat16, [0, 0], seg_ids=segments)
+        bwd = _bwd_case(torch, timer, "packed_llama3_1b", 2, 32, 8, 64,
+                        2048, 2048, torch.bfloat16, seg_ids=segments)
+        assert fwd["ok"] and bwd["ok"], (fwd, bwd)
+        results.setdefault("kernel_rows", []).append(fwd)
+        results.setdefault("kernel_bwd_rows", []).append(bwd)
+        out["packed"] = {
+            "losses": losses, "launches_per_step": per_step[-1],
+            "segment_flash_calls": seg_calls.count,
+            "documents_per_row": [int(r.max()) for r in segments],
+            "kernel_rows": {"k1": {k: fwd[k] for k in KEYS + ("variant",)},
+                            **{n: {k: bwd[n][k] for k in KEYS if k in bwd[n]}
+                               for n in ("delta", "dq", "dkv")}}}
+        print(json.dumps({"example_packed": out["packed"]}), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 
@@ -1354,6 +1664,8 @@ def _kernels_line(results):
     fwd = results["kernel_rows"]
     bwd = results["kernel_bwd_rows"]
     train, tiny = results["train_launches"], results["train_tiny_launches"]
+    example = results["example_launches"]
+    packed = results["example_packed_launches"]
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
 
@@ -1392,7 +1704,9 @@ def _kernels_line(results):
     kernels = [
         entry("flash_fwd_sm90", "flash_fwd_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_sm90"],
-               "train_llama3_1b": train["k1_sm90"]},
+               "train_llama3_1b": train["k1_sm90"],
+               "example_llama3_1b": example["k1_sm90"],
+               "example_llama3_1b_packed": packed["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"]},
@@ -1406,10 +1720,15 @@ def _kernels_line(results):
               fma_beside(of(fwd, "mma")), "tiny_fp32_d16_gqa2"),
         entry("flash_bwd_delta", "flash_bwd.cu", 393,
               {"train_llama3_1b": train["delta"],
-               "train_tiny_fp32": tiny["delta"]}, bwd, "train_llama3_1b",
+               "train_tiny_fp32": tiny["delta"],
+               "example_llama3_1b": example["delta"],
+               "example_llama3_1b_packed": packed["delta"]}, bwd,
+              "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
-              {"train_llama3_1b": train["k2_sm90"]},
+              {"train_llama3_1b": train["k2_sm90"],
+               "example_llama3_1b": example["k2_sm90"],
+               "example_llama3_1b_packed": packed["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
               {"train_tiny_fp32": tiny["k2_mma"]},
@@ -1418,7 +1737,9 @@ def _kernels_line(results):
         entry("flash_bwd_dq_fma", "flash_bwd.cu", 248, {},
               fma_beside(of(bwd, "mma", "dq"), "dq"), "fp32_d16_gqa2"),
         entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
-              {"train_llama3_1b": train["k3_sm90"]},
+              {"train_llama3_1b": train["k3_sm90"],
+               "example_llama3_1b": example["k3_sm90"],
+               "example_llama3_1b_packed": packed["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
               {"train_tiny_fp32": tiny["k3_mma"]},
@@ -1465,7 +1786,8 @@ def main(argv=None) -> int:
            "serve_llama3_1b": lambda: phase_serve_llama3_1b(results),
            "serve_tiny_fp32": lambda: phase_serve_tiny_fp32(results),
            "train_llama3_1b": lambda: phase_train_llama3_1b(results),
-           "train_tiny_fp32": lambda: phase_train_tiny_fp32(results)}
+           "train_tiny_fp32": lambda: phase_train_tiny_fp32(results),
+           "example_llama3_1b": lambda: phase_example_llama3_1b(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

@@ -21,12 +21,40 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("serve/scheduler.py", "serve/scheduler.py"),
             ("serve/frontend.py", "serve/frontend.py"),
             ("obs/registry.py", "obs/registry.py"),
-            ("obs/trace.py", "obs/trace.py")]
+            ("obs/trace.py", "obs/trace.py"),
+            ("data/records.py", "data/records.py"),
+            ("data/store.py", "data/store.py")]
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
+# the port's own versions in obs/metrics.py (process index from the
+# process group, not from JAX)
+METRICS_OWN = ("StepTimer", "MetricLogger")
 # (copy in the port, original in the JAX package, definition) where the
 # port keeps one function of a module that it otherwise rewrites
 COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
-               ("data/packing.py", "data/packing.py", "pack_sequences")]
+               ("data/packing.py", "data/packing.py", "pack_sequences"),
+               ("data/convert.py", "data/convert.py", "convert_token_jsonl"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "_cache_path"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "_bucket"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "_read_table"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "_save"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "kind_has_entries"),
+               ("kernels/flash_autotune.py", "kernels/flash_autotune.py",
+                "lookup_speedup"),
+               ("kernels/auto.py", "kernels/auto.py", "_evidence_says_flash"),
+               ("bootstrap/contract.py", "bootstrap/contract.py",
+                "EnvContract"),
+               ("mesh/mesh.py", "mesh/mesh.py", "MeshSpec"),
+               ("ft/policy.py", "ft/policy.py", "parse_ckpt_blacklist"),
+               ("obs/goodput.py", "obs/goodput.py", "device_peak_flops"),
+               ("obs/goodput.py", "obs/goodput.py", "ledger_path"),
+               ("obs/goodput.py", "obs/goodput.py", "GoodputLedger"),
+               ("train/trainer.py", "train/trainer.py", "RestoreFailure"),
+               ("train/trainer.py", "train/trainer.py", "TrainerObs")]
 
 
 def _port_files():
@@ -129,7 +157,7 @@ def test_copied_metrics_definitions_equal_originals(name):
     ported = _definitions((PORT / "obs/metrics.py").read_text())
     orig = _definitions((REPO / "tpucfn/obs/metrics.py").read_text())
     assert ported[name] == orig[name]
-    assert set(ported) == set(METRICS_DEFS)
+    assert set(ported) == set(METRICS_DEFS) | set(METRICS_OWN)
 
 
 @pytest.mark.parametrize("copy,original,name", COPIED_DEFS,
@@ -137,4 +165,5 @@ def test_copied_metrics_definitions_equal_originals(name):
 def test_copied_definitions_equal_originals(copy, original, name):
     ported = _definitions((PORT / copy).read_text())
     orig = _definitions((REPO / "tpucfn" / original).read_text())
-    assert ported[name] == orig[name]
+    # import statements inside a definition name the port's modules
+    assert _without_imports(ported[name]) == _without_imports(orig[name])

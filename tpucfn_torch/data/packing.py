@@ -5,14 +5,19 @@ port of ``tpucfn/data/packing.py``).
   packer (numpy; held equal to it by ``tests/test_torch_isolation.py``):
   (N, S) ``tokens`` + 1-based ``segments`` (0 = pad).
 * :func:`packed_attention_fn` — an attention op that masks attention
-  across segment boundaries: the flash kernels' segment path for CUDA
-  tensors (K1 forward, K2/K3 backward; no (S, S) mask is built), an
-  explicit dense mask for CPU tensors, as the JAX package does off a TPU.
+  across segment boundaries: the flash kernels' segment path (K1 forward,
+  K2/K3 backward; no (S, S) mask is built) where the dispatch policy of
+  :mod:`tpucfn_torch.kernels.auto` picks flash — CUDA tensors at zero
+  offsets, unless the tune table measured dense faster for the family —
+  and an explicit
+  dense mask everywhere else, as the JAX package does.
   The dense path also keeps padding queries (segment 0) from attending;
   the kernel path lets them attend to padding keys, which the loss never
   reads — compare only valid positions across the two.
 * :func:`packed_causal_lm_loss` — next-token CE only where target and
-  input share a segment (no cross-document prediction, no loss on pad).
+  input share a segment (no cross-document prediction, no loss on pad);
+  :func:`packed_loss_weight` counts those positions, the weight of a
+  rank's loss under data parallelism.
 """
 
 from __future__ import annotations
@@ -92,17 +97,21 @@ def pack_sequences(
 def packed_attention_fn(segments: torch.Tensor):
     """Attention op masking attention across segment boundaries (and, on
     the dense path, off padding, segment 0)."""
+    from tpucfn_torch.kernels.auto import should_use_flash
 
     def att(q, k, v, *, causal=True, mask=None, q_offset=0, k_offset=0):
         if mask is not None:
             raise NotImplementedError(
                 "packed attention owns the mask; combine masks upstream")
-        if q.device.type == "cuda":
+        static_offsets = isinstance(q_offset, int) and isinstance(k_offset, int)
+        if (static_offsets and q_offset == 0 and k_offset == 0
+                and should_use_flash(q.shape[1], causal=causal,
+                                     d=q.shape[-1], dtype=q.dtype,
+                                     device=q.device)):
             from tpucfn_torch.kernels.flash_attention import flash_attention
 
             return flash_attention(q, k, v, causal=causal,
-                                   segment_ids=segments, q_offset=q_offset,
-                                   k_offset=k_offset)
+                                   segment_ids=segments)
         from tpucfn_torch.ops.attention import dot_product_attention
 
         same = (segments[:, None, :, None] == segments[:, None, None, :])
@@ -112,6 +121,19 @@ def packed_attention_fn(segments: torch.Tensor):
                                      q_offset=q_offset, k_offset=k_offset)
 
     return att
+
+
+def _valid_targets(segments: torch.Tensor) -> torch.Tensor:
+    """(B, S-1): the positions whose target shares their segment and is
+    not padding."""
+    return (segments[:, 1:] == segments[:, :-1]) & (segments[:, 1:] > 0)
+
+
+def packed_loss_weight(batch: dict) -> torch.Tensor:
+    """The count that :func:`packed_causal_lm_loss` averages over in
+    ``batch`` (its ``"segments"``): the trainer's ``loss_weight`` for
+    data parallelism."""
+    return _valid_targets(batch["segments"]).sum()
 
 
 def packed_causal_lm_loss(
@@ -125,7 +147,7 @@ def packed_causal_lm_loss(
     input's segment (and is not padding). Returns (loss, accuracy)."""
     from tpucfn_torch.models.llama import token_cross_entropy
 
-    valid = (segments[:, 1:] == segments[:, :-1]) & (segments[:, 1:] > 0)
+    valid = _valid_targets(segments)
     per_tok, hit = token_cross_entropy(logits[:, :-1].float(),
                                        tokens[:, 1:].long(), z_loss)
     denom = valid.sum().clamp_min(1)

@@ -9,7 +9,8 @@ plain ``nn.ModuleList``: the JAX package's ``nn.scan`` stacking is undone
 by the weight converter; ``remat`` wraps each block in
 ``torch.utils.checkpoint``.  The dense MLP only (a MoE config raises).
 Also here: the training losses (``causal_lm_loss``,
-``chunked_causal_lm_loss``).  Sharding rules wait for the mesh slice.
+``chunked_causal_lm_loss``) and the sharding rules
+(``sharding_rules``).
 
 Decode mode keeps its KV cache outside the module, in a
 :class:`DecodeCache` the caller owns and passes to every call.
@@ -154,8 +155,13 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """``attention_fn=None`` is the plain dense op (the JAX package's
-    decode-mode default); pass the flash wrapper to run the kernel."""
+    """``attention_fn=None`` resolves as in the JAX package: outside decode,
+    with the zero ``q_offset`` of the unsharded path, through the measured
+    dense/flash policy
+    (:func:`tpucfn_torch.kernels.auto.auto_attention_static_zero`: the
+    flash kernels on the card unless the tune table measured dense
+    faster for the shape's family);
+    otherwise the plain dense op."""
 
     def __init__(self, cfg: LlamaConfig, *, attention_fn: AttentionFn | None = None,
                  decode: bool = False, device=None):
@@ -164,6 +170,7 @@ class Llama(nn.Module):
             raise NotImplementedError("MoE Llama is not ported yet")
         self.cfg = cfg
         self.decode = decode
+        self.attention_fn = attention_fn
         attention_fn = attention_fn or dot_product_attention
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim,
                                          dtype=cfg.param_dtype or cfg.dtype,
@@ -216,10 +223,11 @@ class Llama(nn.Module):
         rows' ``cache.index`` and the index advances by S.
 
         ``segment_ids`` (B, S) enables packed-sequence training: attention
-        is masked across document boundaries (the kernel's segment path on
-        the card, a dense mask on the CPU) — pair with
-        ``packed_causal_lm_loss``.  Overrides ``attention_fn``;
-        incompatible with decode and with a nonzero ``q_offset``."""
+        is masked across document boundaries (the kernels' segment path
+        where the dispatch policy picks flash, an explicit dense mask
+        elsewhere) — pair with ``packed_causal_lm_loss``.  Overrides
+        ``attention_fn``; incompatible with decode and with a nonzero
+        ``q_offset``."""
         cfg = self.cfg
         if self.decode:
             if cache is None:
@@ -237,6 +245,11 @@ class Llama(nn.Module):
             from tpucfn_torch.data.packing import packed_attention_fn
 
             attention_fn = packed_attention_fn(segment_ids)
+        elif (self.attention_fn is None and not self.decode
+              and isinstance(q_offset, int) and q_offset == 0):
+            from tpucfn_torch.kernels.auto import auto_attention_static_zero
+
+            attention_fn = auto_attention_static_zero
         x = self.embed_tokens(tokens).to(cfg.dtype)
         rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=x.device)
@@ -286,6 +299,57 @@ def init_llama_params(cfg: LlamaConfig, *, generator: torch.Generator,
                                   generator=generator)
         params[name] = w.to(meta.dtype)
     return params
+
+
+def sharding_rules(cfg: LlamaConfig, *, fsdp: bool = True,
+                   tensor: bool = True):
+    """Megatron TP x FSDP rules for the port's parameter names: the JAX
+    package's rules on its layouts.  ``nn.Linear`` weights are (out, in)
+    where a JAX ``DenseGeneral`` kernel is (in, out), so each dense spec
+    is the JAX one reversed; the embedding is (vocab, dim) on both sides.
+    The layers are a list here, not a stacked scan, so no spec has a
+    leading layer entry.  ``cfg`` is taken for the JAX signature (the MoE
+    rules of the JAX package wait with the MoE model)."""
+    from tpucfn_torch.mesh import AXIS_FSDP, AXIS_TENSOR
+    from tpucfn_torch.parallel.sharding import ShardingRules
+
+    del cfg
+    t = AXIS_TENSOR if tensor else None
+    f = AXIS_FSDP if fsdp else None
+    return ShardingRules((
+        (r"(q_proj|k_proj|v_proj)\.weight$", (t, f)),
+        (r"o_proj\.weight$", (f, t)),
+        (r"(gate_proj|up_proj)\.weight$", (t, f)),
+        (r"down_proj\.weight$", (f, t)),
+        (r"(input_norm|post_attn_norm)\.scale$", ()),
+        (r"embed_tokens\.weight$", (t, f)),
+        (r"lm_head\.weight$", (t, f)),
+        (r".*", ()),
+    ))
+
+
+def train_step_flops(cfg: LlamaConfig, batch: int, seq_len: int, *,
+                     chunked_head: bool = True) -> float:
+    """Matmul and attention FLOPs of one training step over a (batch,
+    seq_len) token batch: the forward, the backward (twice the forward),
+    the recompute of every block's forward under full remat
+    (``cfg.remat``), and, with ``chunked_head`` (the chunked CE, each
+    chunk under a checkpoint), the recompute of the LM head.  Attention
+    counts the causal half of each (S, S) product, the work the flash
+    kernels do.  Norms, activations, the softmax and the optimizer are
+    not counted."""
+    hd, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tokens = batch * seq_len
+    per_layer = (2 * cfg.dim * h * hd + 2 * cfg.dim * hkv * hd
+                 + 3 * cfg.dim * cfg.ffn_dim)
+    blocks = cfg.n_layers * (
+        2 * tokens * per_layer
+        + 4 * batch * h * hd * (seq_len * (seq_len + 1) // 2))
+    head_rows = batch * (seq_len - 1) if chunked_head else tokens
+    head = 2 * head_rows * cfg.dim * cfg.vocab_size
+    recompute = (blocks if remat_policy(cfg.remat) else 0) + (
+        head if chunked_head else 0)
+    return float(3 * (blocks + head) + recompute)
 
 
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

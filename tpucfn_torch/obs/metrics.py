@@ -1,17 +1,23 @@
-"""Metric instruments for the serving plane: ``nearest_rank``,
-:class:`Counter`, :class:`Gauge`, :class:`ComputedGauge` and
-:class:`Summary`.
+"""Metric instruments and the training loop's step timer and JSONL
+logger (the port of ``tpucfn/obs/metrics.py``).
 
-Copied definition for definition from ``tpucfn/obs/metrics.py`` (the
-port imports nothing of the JAX package); a drift test holds each
-definition equal to its original.  The device gauges, the step timer
-and the JSONL logger are not part of the serving path and are not
-copied.
+``nearest_rank``, :class:`Counter`, :class:`Gauge`,
+:class:`ComputedGauge` and :class:`Summary` are copied definition for
+definition (the port imports nothing of the JAX package); a drift test
+holds each equal to its original.  :class:`StepTimer` and
+:class:`MetricLogger` differ: the process index and the card count come
+from the process group (:mod:`tpucfn_torch.launch`), not from JAX, and
+the logger writes no TensorBoard events.  The device gauges are not
+ported (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import json
 import threading
+import time
+from pathlib import Path
+from typing import Any, Mapping
 
 
 def nearest_rank(xs_sorted: list, p: float):
@@ -136,3 +142,100 @@ class Summary:
         return {"count": count, "mean": (total / count if count else None),
                 "p50": nearest_rank(xs, 50), "p95": nearest_rank(xs, 95),
                 "p99": nearest_rank(xs, 99)}
+
+
+class StepTimer:
+    """Tracks step wall time and derives throughput.
+
+    Call :meth:`tick` once per completed (synchronized) step.  The first
+    ``warmup`` ticks are excluded from the running average: they hold the
+    kernels' build and the allocator's warm-up."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self._count = 0
+        self._t0 = None
+        self._total = 0.0
+        self._last = None
+
+    def tick(self) -> float | None:
+        now = time.perf_counter()
+        dt = None if self._t0 is None else now - self._t0
+        self._t0 = now
+        if dt is not None:
+            self._count += 1
+            self._last = dt
+            if self._count > self.warmup:
+                self._total += dt
+        return dt
+
+    @property
+    def mean_step_time(self) -> float | None:
+        steady = self._count - self.warmup
+        return self._total / steady if steady > 0 else None
+
+    def throughput(self, items_per_step: int) -> float | None:
+        """items/sec over steady-state steps (e.g. global-batch tokens/sec)."""
+        mst = self.mean_step_time
+        return items_per_step / mst if mst else None
+
+    def per_chip_throughput(self, items_per_step: int) -> float | None:
+        from tpucfn_torch.launch import process_count
+
+        tp = self.throughput(items_per_step)
+        return tp / process_count() if tp else None
+
+
+class MetricLogger:
+    """One JSONL file per process (``{name}-host{index:03d}.jsonl`` in
+    ``log_dir``) and, every ``stdout_every`` steps, a readable line on
+    rank 0's stdout."""
+
+    def __init__(self, log_dir: str | Path | None = None, *,
+                 stdout_every: int = 10, name: str = "train"):
+        from tpucfn_torch.launch import process_index
+
+        self.path = None
+        self._f = None
+        self._rank = process_index()
+        if log_dir is not None:
+            d = Path(log_dir)
+            d.mkdir(parents=True, exist_ok=True)
+            self.path = d / f"{name}-host{self._rank:03d}.jsonl"
+            self._f = open(self.path, "a", buffering=1)
+        self.stdout_every = stdout_every
+        self.name = name
+        self._closed = False
+        # log() and close() can race (serving thread vs shutdown path);
+        # the flag alone is check-then-act, so writes and the close both
+        # happen under this lock.
+        self._lock = threading.Lock()
+
+    def log(self, step: int, metrics: Mapping[str, Any]) -> None:
+        record = {"step": int(step), "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                record[k] = float(v)
+            except (TypeError, ValueError):
+                record[k] = str(v)
+        with self._lock:
+            if self._closed:  # late log() after close() is a no-op
+                return
+            if self._f is not None:
+                self._f.write(json.dumps(record) + "\n")
+        if (self.stdout_every and step % self.stdout_every == 0
+                and self._rank == 0):
+            body = " ".join(
+                f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in record.items()
+                if k not in ("time",)
+            )
+            print(f"[{self.name}] {body}", flush=True)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            if self._f is not None:
+                self._f.close()

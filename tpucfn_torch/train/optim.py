@@ -5,7 +5,10 @@ A transform has ``init(params) -> state`` and ``update(grads, state,
 params) -> grads``; the last transform of a :func:`chain` applies the
 update to the parameters in place and returns ``None``.  ``params`` and
 ``grads`` are dicts of tensors with the same keys; gradients are
-transformed in place.
+transformed in place.  ``state_dict(state, params)`` gives the state as a
+flat dict of tensors named after the parameters (what a checkpoint
+holds), and ``load_state_dict(state, params, sd)`` writes such a dict
+back into ``state`` in place.
 
 * :func:`clip_by_global_norm` — optax's formula, g * max_norm /
   max(||g||, max_norm), with the norm over every gradient together
@@ -59,6 +62,12 @@ class _ClipByGlobalNorm:
     def init(self, params: dict[str, torch.Tensor]) -> tuple:
         return ()
 
+    def state_dict(self, state, params) -> dict:
+        return {}
+
+    def load_state_dict(self, state, params, sd) -> None:
+        pass
+
     def update(self, grads, state, params):
         del state, params
         gs = list(grads.values())
@@ -88,6 +97,37 @@ class _AdamW:
                                 **self.kwargs)
         return {"optimizer": opt, "count": 0}
 
+    def state_dict(self, state, params) -> dict:
+        """The update count and each parameter's AdamW ``step``,
+        ``exp_avg`` and ``exp_avg_sq``.  A parameter with no state yet
+        gets it here as ``torch.optim.AdamW`` would make it at its first
+        update (zeros), so a state before any update saves too."""
+        opt = state["optimizer"]
+        group = opt.param_groups[0]
+        sd = {"count": torch.tensor(state["count"], dtype=torch.int64)}
+        for name, p in params.items():
+            st = opt.state[p]
+            if not st:
+                on_device = group["capturable"] or group["fused"]
+                st["step"] = (torch.zeros((), dtype=torch.float32,
+                                          device=p.device)
+                              if on_device else torch.tensor(0.0))
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                sd[f"{key}/{name}"] = st[key]
+        return sd
+
+    def load_state_dict(self, state, params, sd) -> None:
+        """Copy ``sd`` (as :meth:`state_dict` names it) into the state."""
+        own = self.state_dict(state, params)
+        with torch.no_grad():
+            for key, t in own.items():
+                t.copy_(sd[key])
+        state["count"] = int(own["count"])
+
     def update(self, grads, state, params) -> None:
         opt = state["optimizer"]
         for group in opt.param_groups:
@@ -112,6 +152,18 @@ class _Chain:
 
     def init(self, params):
         return tuple(t.init(params) for t in self.transforms)
+
+    def state_dict(self, state, params) -> dict:
+        return {f"{i}/{k}": v
+                for i, (t, st) in enumerate(zip(self.transforms, state))
+                for k, v in t.state_dict(st, params).items()}
+
+    def load_state_dict(self, state, params, sd) -> None:
+        for i, (t, st) in enumerate(zip(self.transforms, state)):
+            prefix = f"{i}/"
+            t.load_state_dict(st, params, {
+                k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix)})
 
     def update(self, grads, state, params):
         for t, s in zip(self.transforms, state):
