@@ -105,6 +105,29 @@ Phases, each printed as one JSON line:
    the run's segment ids: error, kernel, bound, plain and library times,
    rows beside each kernel's others in the kernels line).
 
+10. ``ft_llama3_1b``: the cluster entry point, in subprocesses:
+   ``python -m tpucfn_torch.cli create-stack --accelerator h100-1`` on
+   the fake control plane, then ``launch --ft --obs-port P --chaos`` runs
+   the port's example (``python -m tpucfn_torch.examples.llama3_8b_fsdp
+   --model 1b --layers 2 --seq-len 2048 --batch-size 2 --steps 16
+   --ckpt-every 4 --num-examples 2``) under the gang coordinator, with
+   heartbeats every 0.5 s, a restart budget of 1, a chaos ``kill`` at
+   fleet step 6 and a ``preempt_notice`` at fleet step 11.  Gates: the
+   launch exits 0; one unplanned gang restart (budget 1 used) and one
+   planned drain (none), in that order; the relaunch after the kill
+   resumes from the newest step finalized when it landed (> 0), the one
+   after the drain from the drain's force-save; the 16 losses equal an
+   uninterrupted run's (in this process, planes off) within 1e-3
+   relative; while the rank trains, the supervisor's ``/healthz``
+   answers and rank 0's ``/healthz`` carries its step, its ``/metrics``
+   the step and the card's memory gauges, its ``/flightrecorder`` ``hbm``
+   samples from the card, and ``POST /profile?seconds=2`` writes a trace
+   that names the K1, K2 and K3 ``sm90`` kernels and Delta; the heartbeat
+   files end at step 16.  Printed: detect latency, time to recover,
+   drain latency, each boot's time to its first heartbeat and to its
+   first step, the heartbeats' largest gaps, the step with the planes on
+   against the same run's with them off, and steps inside the capture.
+
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
 launched on a path above, and the old fma kernels of K1, K2 and K3,
 which no path reaches, with their times from the turns) and, last, ``{"ok": true, "device": {...}}``.
@@ -128,7 +151,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32",
-          "example_llama3_1b")
+          "example_llama3_1b", "ft_llama3_1b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -1428,10 +1451,13 @@ def _run_example(argv, per_step=None):
     """The port's example through its ``main(argv)``; its stdout is kept
     (and returned) and each ``Trainer.step``'s launches are appended to
     ``per_step``."""
+    import atexit
     import contextlib
     import io
+    import signal
 
     from tpucfn_torch.examples import llama3_8b_fsdp as ex
+    from tpucfn_torch.obs.flight import FlightRecorder
     from tpucfn_torch.train import trainer as tr
 
     real_step = tr.Trainer.step
@@ -1444,15 +1470,54 @@ def _run_example(argv, per_step=None):
             per_step.append({k: after[k] - before[k] for k in after})
         return out
 
+    # The loop arms its flight ring's dump for the process's exit (atexit
+    # and SIGTERM).  In this process the run ends here, and its run dir is
+    # removed before the exit: the hooks go with the run.
+    real_install = FlightRecorder.install_dump_handlers
+    armed = []
+
+    def install(rec, d, *a, **kw):
+        armed.append((rec, signal.getsignal(signal.SIGTERM)))
+        return real_install(rec, d, *a, **kw)
+
     out = io.StringIO()
     tr.Trainer.step = counted
+    FlightRecorder.install_dump_handlers = install
     try:
         with contextlib.redirect_stdout(out):
             rc = ex.main(argv)
     finally:
         tr.Trainer.step = real_step
+        FlightRecorder.install_dump_handlers = real_install
+        for rec, sigterm in armed:
+            atexit.unregister(rec._dump_quietly)
+            signal.signal(signal.SIGTERM, sigterm)
     assert rc == 0, out.getvalue()[-2000:]
     return out.getvalue()
+
+
+def _whole_2_layers(results):
+    """The uninterrupted 2-layer run (``FT_JOB`` in this process, no
+    planes) that the example's resume and the ft drill hold their losses
+    to, run once by whichever phase comes first.  Step 1's write is made
+    durable before step 3, so steps 3 on run with none: the drill's
+    planes-off steps."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if "whole_2_layers" not in results:
+        root = Path(tempfile.mkdtemp(prefix="whole_2_layers-"))
+        try:
+            torch.cuda.empty_cache()
+            with _WaitForSaveBefore(3):
+                _run_example(FT_JOB + ["--run-dir", str(root)])
+            results["whole_2_layers"] = _run_record(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return results["whole_2_layers"]
 
 
 def _run_record(run_dir):
@@ -1564,6 +1629,8 @@ def phase_example_llama3_1b(results):
                     "loop_cost_ms": None if bare is None else ms - bare,
                     "tokens_per_s": 2 * 2048 / (ms / 1e3)}
 
+        if windows[False]:
+            results["example_loop_ms"] = loop(windows[False])["step_ms"]
         out["full"] = {
             "losses": losses, "launches_per_step": per_step[-1],
             "launches_expected_per_step": expected,
@@ -1581,15 +1648,15 @@ def phase_example_llama3_1b(results):
         print(json.dumps({"example_full": out["full"]}), flush=True)
         shutil.rmtree(root / "full")
 
-        # 3. resume, at full width and 2 layers
+        # 3. resume, at full width and 2 layers, against the uninterrupted
+        # run that the ft drill's losses are held to as well: cut at step
+        # 3, relaunched up to step 6 of the same schedule
         two = base + ["--layers", "2"]
-        _run_example(two + ["--steps", "6", "--run-dir", str(root / "whole")])
-        whole = _run_record(root / "whole")["losses"]
-        shutil.rmtree(root / "whole")
+        whole = _whole_2_layers(results)["losses"]
         cut = root / "cut"
-        _run_example(two + ["--steps", "6", "--stop-after", "3",
-                            "--run-dir", str(cut)])
-        text = _run_example(two + ["--steps", "6", "--run-dir", str(cut)])
+        _run_example(FT_JOB + ["--stop-after", "3", "--run-dir", str(cut)])
+        text = _run_example(FT_JOB + ["--stop-after", "6", "--run-dir",
+                                      str(cut)])
         assert "resumed from step 3" in text, text[-2000:]
         rec = _run_record(cut)
         rel = [abs(rec["losses"][i] - whole[i]) / abs(whole[i])
@@ -1653,6 +1720,519 @@ def phase_example_llama3_1b(results):
     return out
 
 
+# ---- phase 10 --------------------------------------------------------------
+# The drill: 34 steps at full width and 2 layers (fresh batches, as the
+# example's resume run), a save at step 1 (the directory's first) and
+# every 20.  A kill at fleet step 21 lands with step 20's write open
+# (step 20's save waited for step 1's write), so the relaunch resumes
+# from step 1 and runs steps 2-20 with no write in flight: the profiler
+# capture (about 9 steps) goes there.  A preemption notice at fleet step
+# 26 drains at fleet step + 2, and the last relaunch resumes there and
+# ends at 34.
+FT_STEPS, FT_CKPT_EVERY, FT_KILL_AT, FT_NOTICE_AT = 34, 20, 21, 26
+FT_JOB = ["--model", "1b", "--layers", "2", "--seq-len", "2048",
+          "--batch-size", "2", "--steps", str(FT_STEPS), "--log-every", "1"]
+# Heartbeats every 0.5 s: the monitor calls a rank dead after 6 beats'
+# silence (3 s).  At 0.25 s (dead at 1.5 s) the card showed gaps of up to
+# 1.145 s in the resumed ranks, too close to a false HANG verdict.
+FT_HEARTBEAT_S = 0.5
+# How long the coordinator waits for the drained rank's clean exit (the
+# notice carries no lead time).  The drain's force-save waits for the
+# write in flight and then writes its own 7.8 GB: two writes, which took
+# longer than the 30 s default on the card, where the rank was stopped
+# before its save was durable and the relaunch resumed a step early.
+FT_DRAIN_GRACE_S = 120.0
+# The no-heartbeat-yet window after each (re)launch: it must cover a
+# rank's boot on the card up to its first heartbeat (torch import, the
+# built kernels loaded, the runtime joined), which the phase measures
+# (boot_to_first_heartbeat_s) and holds under it.
+FT_STARTUP_GRACE_S = 60.0
+FT_PROFILE_S = 2.0
+# the four kernels of the training step, as the profiler names them
+FT_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+              "flash_bwd_dkv_sm90_kernel", "flash_bwd_delta_kernel")
+
+
+def _free_port_pair():
+    """A port P with P + 1 free as well (the supervisor and rank 0)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            port = a.getsockname()[1]
+            if port > 65000:
+                continue
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", port + 1))
+                except OSError:
+                    continue
+        return port
+    raise RuntimeError("no free port pair")
+
+
+def _http(url, method="GET", timeout=5.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method,
+                                 data=b"" if method == "POST" else None)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _prometheus(text):
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name.split("{")[0]] = float(value)
+    return out
+
+
+class _Scraper:
+    """Polls the supervisor's and rank 0's obs endpoints while the launch
+    runs: ``/healthz`` of both, rank 0's ``/metrics`` (the last scrape
+    of each incarnation, by pid) and ``/flightrecorder``; notes the
+    checkpoint directory's entries when the coordinator's first detect event
+    lands; and once, as soon as the second incarnation reports a step,
+    asks rank 0 for ``POST /profile?seconds=FT_PROFILE_S`` (steps 2-20 of
+    that incarnation run with no checkpoint write in flight)."""
+
+    def __init__(self, port, ft_dir, ckpt_dir):
+        import threading
+
+        self.port, self.ft_dir, self.ckpt_dir = port, ft_dir, ckpt_dir
+        self.supervisor_ok = False
+        self.health = {}       # pid -> last /healthz body
+        self.metrics = {}      # pid -> last /metrics values
+        self.flight = {}       # pid -> hbm samples of the last ring read
+        self.pids = []         # rank 0's pids in launch order
+        self.ckpt_at_detect = None  # the checkpoint dir's entries
+        self.profile = None
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=FT_PROFILE_S + 120)
+
+    def _detected(self):
+        try:
+            text = (self.ft_dir / "events.jsonl").read_text()
+        except OSError:
+            return False
+        return any(json.loads(line)["kind"] == "detect"
+                   for line in text.splitlines() if line.strip())
+
+    def _run(self):
+        import urllib.error
+
+        base = f"http://127.0.0.1:{self.port}"
+        rank = f"http://127.0.0.1:{self.port + 1}"
+        while not self._stop.is_set():
+            if self.ckpt_at_detect is None and self._detected():
+                self.ckpt_at_detect = sorted(
+                    d.name for d in self.ckpt_dir.iterdir())
+            try:
+                self.supervisor_ok |= _http(base + "/healthz")[0] == 200
+            except OSError:
+                pass
+            try:
+                code, body = _http(rank + "/healthz")
+                h = json.loads(body)
+                pid = h["pid"]
+                if pid not in self.pids:
+                    self.pids.append(pid)
+                if code == 200:
+                    self.health[pid] = h
+                if (self.profile is None and len(self.pids) == 2
+                        and (h.get("step") or 0) >= 2):
+                    t0 = time.time()
+                    try:
+                        code, body = _http(
+                            rank + f"/profile?seconds={FT_PROFILE_S}",
+                            "POST", timeout=FT_PROFILE_S + 120)
+                    except urllib.error.HTTPError as e:  # the phase fails
+                        self.profile = {"status": e.code,
+                                        "error": e.read().decode()}
+                    else:
+                        self.profile = {"status": code, "t0": t0,
+                                        "t1": time.time(), **json.loads(body)}
+                self.metrics[pid] = _prometheus(_http(rank + "/metrics")[1])
+                ring = json.loads(_http(rank + "/flightrecorder")[1])
+                hbm = [x for x in ring["samples"] if x["kind"] == "hbm"]
+                if hbm:
+                    self.flight[pid] = hbm
+            except OSError:
+                pass  # booting, or between incarnations
+            except Exception as e:  # noqa: BLE001 — reported by the phase
+                self.errors.append(repr(e))
+            self._stop.wait(0.25)
+
+
+def _jsonl(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()
+            if line.strip()]
+
+
+def _trace_kernels(path):
+    """Device kernels of a Chrome trace, by name, and how many times."""
+    counts = {}
+    for e in json.loads(Path(path).read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def _steady_steps(rec, exclude=()):
+    """(step, ms, write in flight) of every step but the first after a
+    (re)launch or a pause of over 2 s (a save that waits for the write
+    before it), minus the windows in ``exclude`` ((start, end) on the
+    spans' monotonic clock, which is the machine's)."""
+    writes = [(w["start"], w["start"] + w["s"]) for w in rec["ckpt_write"]]
+    out, prev = [], None
+    for step, start, dur in rec["step_spans"]:
+        first = (prev is None or step != prev[0] + 1
+                 or start - prev[1] > 2.0)
+        prev = (step, start + dur)
+        if first or any(a < start + dur and start < b for a, b in exclude):
+            continue
+        out.append((step, dur * 1e3,
+                    any(a < start + dur and start < b for a, b in writes)))
+    return out
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def phase_ft_llama3_1b(results):
+    """``create-stack`` and ``launch --ft`` drive the port's example at
+    llama3-1b width (2 layers) under the gang coordinator, in
+    subprocesses: a chaos kill and relaunch, a preemption drain, the obs
+    endpoints of the live rank, and a profiler capture of its kernels."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from tpucfn_torch.ft import read_heartbeats, replay_journal
+    from tpucfn_torch.obs.trace import read_trace_dir
+
+    t_phase, wall0 = time.perf_counter(), time.time()
+    root = Path(tempfile.mkdtemp(prefix="ft_llama3_1b-"))
+    state, name = root / "state", "smoke"
+    run_dir = state / "clusters" / name
+    ft_dir = run_dir / "ft"
+    out = {"card": results.get("card"), "steps": FT_STEPS,
+           "ckpt_every": FT_CKPT_EVERY, "kill_at_step": FT_KILL_AT,
+           "notice_at_step": FT_NOTICE_AT, "heartbeat_s": FT_HEARTBEAT_S,
+           "startup_grace_s": FT_STARTUP_GRACE_S,
+           "drain_grace_s": FT_DRAIN_GRACE_S,
+           "whole_run_in_phase": "whole_2_layers" not in results}
+    try:
+        # 1. the uninterrupted run, planes off (the example's, when that
+        # phase ran first)
+        whole = _whole_2_layers(results)
+
+        # 2. the cluster, on the fake control plane
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        cli = [sys.executable, "-m", "tpucfn_torch.cli", "--state-dir",
+               str(state)]
+        r = subprocess.run(cli + ["create-stack", "--name", name,
+                                  "--accelerator", "h100-1"], env=env,
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0 and f"CREATE_COMPLETE {name}" in r.stdout, (
+            r.stdout, r.stderr)
+
+        # 3. launch --ft with the chaos spec, scraped while it runs
+        spec = root / "chaos.json"
+        spec.write_text(json.dumps({"seed": 0, "events": [
+            {"action": "kill", "at_step": FT_KILL_AT, "host": 0},
+            {"action": "preempt_notice", "at_step": FT_NOTICE_AT,
+             "host": 0}]}))
+        port = _free_port_pair()
+        log_out, log_err = root / "launch.out", root / "launch.err"
+        with open(log_out, "w") as fo, open(log_err, "w") as fe, \
+                _Scraper(port, ft_dir, run_dir / "ckpt") as scraper:
+            wall_launch = time.time()
+            proc = subprocess.Popen(
+                cli + ["launch", "--name", name, "--ft",
+                       "--ft-restart-budget", "1",
+                       "--ft-heartbeat-interval", str(FT_HEARTBEAT_S),
+                       "--ft-startup-grace", str(FT_STARTUP_GRACE_S),
+                       "--ft-drain-grace", str(FT_DRAIN_GRACE_S),
+                       "--obs-port", str(port), "--chaos", str(spec), "--",
+                       sys.executable, "-m",
+                       "tpucfn_torch.examples.llama3_8b_fsdp", *FT_JOB,
+                       "--ckpt-every", str(FT_CKPT_EVERY), "--run-dir",
+                       str(run_dir)],
+                env=env, cwd=HERE, stdout=fo, stderr=fe,
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=600)
+                wall_end = time.time()
+            finally:
+                if proc.poll() is None:
+                    # the coordinator and the ranks it spawned: one group
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        stdout = log_out.read_text()
+        if rc != 0:
+            print(log_err.read_text()[-6000:], file=sys.stderr)
+        assert rc == 0 and "launch finished rc=0" in stdout, (
+            rc, stdout[-3000:])
+        assert not scraper.errors, scraper.errors
+
+        try:
+            # 4. the coordinator's record: one unplanned restart (the kill,
+            # budget 1 used) and one planned drain (no budget), in that order
+            ev = _jsonl(ft_dir / "events.jsonl")
+            fired = [r for r in replay_journal(
+                ft_dir / "journal" / "journal.jsonl")[1]
+                if r["kind"] == "chaos_fired"]
+            kinds = [e["kind"] for e in ev]
+            decides = [e for e in ev if e["kind"] == "decide"]
+            incidents = [e for e in ev if e["kind"] == "goodput_incident"]
+            sup = json.loads((ft_dir / "supervisor.json").read_text())
+            out["events"] = kinds
+            assert [f["action"] for f in fired] == ["kill", "preempt_notice"], \
+                fired
+            assert [(d["action"], d["planned"]) for d in decides][:1] == [
+                ("gang_restart", False)], decides
+            assert sum(1 for d in decides if not d["planned"]) == 1, decides
+            assert kinds.count("drain") == 1, kinds
+            assert [i["planned"] for i in incidents] == [False, True], incidents
+            assert sup["budget"] == {"max_restarts": 1, "used": 1}, sup["budget"]
+            drain = next(e for e in ev if e["kind"] == "drain")
+            detect = next(e for e in ev if e["kind"] == "detect")
+            relaunch = [e["ts"] for e in ev if e["kind"] == "launch"]
+            steps_seen = {"kill_fleet_step": incidents[0]["fleet_step"],
+                          "notice_fleet_step": incidents[1]["fleet_step"],
+                          "drain_step": drain["step"]}
+            out["steps_seen"] = steps_seen
+            # in time: the kill, its detect and relaunch, then the notice
+            # in the second incarnation, its drain, and the end
+            assert (len(relaunch) == 3
+                    and fired[0]["ts"] <= detect["ts"] < relaunch[1]
+                    < fired[1]["ts"] <= drain["ts"] < relaunch[2]
+                    and FT_KILL_AT <= steps_seen["kill_fleet_step"]
+                    and FT_NOTICE_AT <= steps_seen["notice_fleet_step"]
+                    and steps_seen["drain_step"] < FT_STEPS), (
+                f"events out of order: {steps_seen}, {kinds}")
+
+            # 5. the resumes: after the kill, from the newest step finalized
+            # when it landed; after the drain, from the drain's force-save
+            resumed = [int(line.rsplit(" ", 1)[1]) for line in stdout.splitlines()
+                       if line.startswith("resumed from step")]
+            stopped = [int(line.rsplit(" ", 1)[1]) for line in stdout.splitlines()
+                       if line.startswith("preemption drain: stopping cleanly")]
+            at_kill = scraper.ckpt_at_detect or []
+            finalized = sorted(int(n) for n in at_kill if n.isdigit())
+            out.update(resumed=resumed, drain_stopped_at=stopped,
+                       ckpt_dir_at_kill=at_kill)
+            assert finalized and len(resumed) == 2 and len(stopped) == 1, (
+                resumed, stopped, at_kill)
+            assert resumed[0] > 0 and resumed[0] == finalized[-1], (
+                resumed, at_kill)
+            # the kill landed while step FT_CKPT_EVERY's write was open
+            assert any(n.startswith(f"{FT_CKPT_EVERY}.ckpt-tmp")
+                       for n in at_kill), at_kill
+            assert resumed[1] == stopped[0] == drain["step"], (resumed, stopped)
+
+            # 6. the losses: every step's equal to the uninterrupted run's
+            rows = _jsonl(run_dir / "logs" / "train-host000.jsonl")
+            losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+            steps = list(range(1, FT_STEPS + 1))
+            assert sorted(losses) == steps, sorted(losses)
+            rel = max(abs(losses[i] - whole["losses"][i]) / abs(whole["losses"][i])
+                      for i in steps)
+            out["losses"] = [losses[i] for i in steps]
+            out["losses_max_rel_diff"] = rel
+            assert rel <= EXAMPLE_LOSS_REL_TOL, (losses, whole["losses"])
+
+            # 7. the live endpoints of rank 0
+            assert scraper.supervisor_ok, "the supervisor's /healthz never answered"
+            assert len(scraper.pids) == 3, scraper.pids
+            assert any(h.get("step") for h in scraper.health.values()), \
+                scraper.health
+            last = scraper.metrics[scraper.pids[-1]]
+            for key in ("train_last_step", "device_hbm_used_bytes",
+                        "device_hbm_peak_bytes", "device_hbm_limit_bytes"):
+                assert last.get(key, 0) > 0, (key, last)
+            hbm = [x for samples in scraper.flight.values() for x in samples]
+            assert hbm and all(x["used"] > 0 and x["limit"] > 7e10 for x in hbm), \
+                hbm[:3]
+            prof = scraper.profile
+            assert prof and prof["status"] == 200, prof
+            kernels = _trace_kernels(Path(prof["artifact"]) / "trace.json")
+            named = {k: sum(n for name_, n in kernels.items() if k in name_)
+                     for k in FT_KERNELS}
+            assert all(named.values()), (named, sorted(kernels)[:40])
+            out["profile"] = {"seconds": prof["seconds"], "dur_s": prof["dur_s"],
+                              "kernels_named": named,
+                              "distinct_kernels": len(kernels)}
+            out["metrics_last"] = {k: v for k, v in last.items()
+                                   if k.startswith(("device_hbm", "kernel_",
+                                                    "train_last_step"))}
+            out["hbm_samples"] = len(hbm)
+            # launches on this path, exactly: every step's log row holds
+            # its rank's counters so far (those launched at all), so each
+            # row of each incarnation must show K1/K2/K3 sm90 and Delta at
+            # 4/2/2/2 a step since its resume, and nothing else
+            keys = {"k1_sm90": "kernel_launches_flash_fwd_sm90",
+                    "k2_sm90": "kernel_launches_flash_bwd_dq_sm90",
+                    "k3_sm90": "kernel_launches_flash_bwd_dkv_sm90",
+                    "delta": "kernel_launches_flash_bwd_delta"}
+            per_step = {"k1_sm90": 2 * LAUNCHES_PER_LAYER["k1"],
+                        "k2_sm90": 2 * LAUNCHES_PER_LAYER["k2"],
+                        "k3_sm90": 2 * LAUNCHES_PER_LAYER["k3"],
+                        "delta": 2 * LAUNCHES_PER_LAYER["delta"]}
+            incarnations = []
+            for r in rows:
+                if "time_to_first_step" in r:
+                    incarnations.append([])
+                elif "loss" in r:
+                    incarnations[-1].append(r)
+            starts = [0] + resumed
+            assert len(incarnations) == 3, len(incarnations)
+            for start, inc in zip(starts, incarnations):
+                for r in inc:
+                    got = {k: v for k, v in r.items()
+                           if k.startswith("kernel_launches_")}
+                    want = {m: per_step[k] * (r["step"] - start)
+                            for k, m in keys.items()}
+                    assert got == want, (start, r["step"], got, want)
+            by_incarnation = [{k: int(inc[-1][m]) for k, m in keys.items()}
+                              for inc in incarnations]
+            results["ft_launches"] = {
+                k: sum(c[k] for c in by_incarnation) for k in keys}
+            out["launches"] = results["ft_launches"]
+            out["launches_by_incarnation"] = by_incarnation
+            out["steps_by_incarnation"] = [
+                [inc[0]["step"], inc[-1]["step"]] for inc in incarnations]
+
+            # 8. the heartbeats read back, ending at the final step
+            hb = read_heartbeats(ft_dir)
+            assert hb[0]["step"] == FT_STEPS, hb
+            beats = _jsonl(ft_dir / "hb-host000.jsonl")
+            # each rank's largest gap between beats, with the step its
+            # beat carried before the gap (None: before its first step)
+            # and the seconds from its first beat to the gap
+            gaps, first_t = {}, {}
+            for a, b in zip(beats, beats[1:]):
+                first_t.setdefault(a["pid"], a["t"])
+                if a["pid"] == b["pid"] and b["t"] - a["t"] > gaps.get(
+                        a["pid"], {"s": 0.0})["s"]:
+                    gaps[a["pid"]] = {"s": b["t"] - a["t"], "step": a["step"],
+                                      "at_s": a["t"] - first_t[a["pid"]]}
+            out["heartbeat_max_gap"] = [gaps.get(p) for p in scraper.pids]
+            verdicts = [e for e in ev if e["kind"] == "detect"]
+            out["detect_failures"] = [f for e in verdicts for f in e["failures"]]
+            # no hang or straggler verdict: the kill and the notice only
+            assert [f["kind"] for f in out["detect_failures"]] == [
+                "crash", "preempt"], out["detect_failures"]
+
+            # 9. the drill's times
+            launches = [e for e in ev if e["kind"] == "launch"]
+            relaunch_after_drain = next(e for e in launches
+                                        if e["ts"] > drain["ts"])
+            kill_t, notice_t = fired[0]["ts"], fired[1]["ts"]
+            after_kill = next(r for r in rows if "loss" in r
+                              and r["time"] > kill_t
+                              and r["step"] == resumed[0] + 1)
+            first_beat = {}
+            for b in beats:
+                first_beat.setdefault(b["pid"], b["t"])
+            boots = [first_beat[pid] - e["ts"]
+                     for e in launches for pid in e["pids"] if pid in first_beat]
+            out["detect_latency_s"] = detect["ts"] - kill_t
+            out["time_to_recover_s"] = after_kill["time"] - kill_t
+            out["drain_latency_s"] = relaunch_after_drain["ts"] - notice_t
+            # where the phase's wall time goes (the checks after the
+            # launch are the rest of phase_s)
+            starts = [e["ts"] for e in launches]
+            out["wall_s"] = {
+                "before_launch": wall_launch - wall0,
+                "launch_to_first_rank": starts[0] - wall_launch,
+                "first_incarnation": kill_t - starts[0],
+                "kill_to_relaunch": starts[1] - kill_t,
+                "second_incarnation": notice_t - starts[1],
+                "notice_to_relaunch": starts[2] - notice_t,
+                "last_incarnation": wall_end - starts[2]}
+            out["notice_to_drain_file_s"] = drain["ts"] - notice_t
+            out["boot_to_first_heartbeat_s"] = boots
+            out["time_to_first_step_s"] = [r["time_to_first_step"] for r in rows
+                                           if "time_to_first_step" in r]
+            assert max(boots) < FT_STARTUP_GRACE_S, boots
+            rec = _run_record(run_dir)
+            spans = read_trace_dir(run_dir / "trace")
+            capture = [(r["start"], r["start"] + r["dur_s"]) for r in spans
+                       if r["name"] == "profile_capture"]
+            # The killed rank's last write never ended, so it left no
+            # ckpt_write span: its steps (all with a write in flight) are
+            # left out, from the relaunch on (the first step whose number
+            # falls) the writes are known.
+            order = sorted(rec["step_spans"], key=lambda x: x[1])
+            relaunched = next(i for i in range(1, len(order))
+                              if order[i][0] <= order[i - 1][0])
+            rec = dict(rec, step_spans=order[relaunched:])
+            planes_on = _steady_steps(rec, exclude=capture)
+            planes_off = _steady_steps(whole)
+            in_capture = [x for x in _steady_steps(rec)
+                          if x not in planes_on]
+            on_free = _mean([ms for _, ms, w in planes_on if not w])
+            off_free = _mean([ms for _, ms, w in planes_off if not w])
+            cap_mean = _mean([ms for _, ms, _ in in_capture])
+            # the capture ran where no write was in flight: its steps are
+            # held to the write-free steps outside it
+            assert (len(capture) == 1 and len(in_capture) >= 4
+                    and not any(w for _, _, w in in_capture)), (
+                capture, in_capture, rec["ckpt_write"])
+            out["step_ms"] = {
+                "planes_on_no_write": on_free,
+                "planes_on_write_in_flight": _mean(
+                    [ms for _, ms, w in planes_on if w]),
+                "planes_off_no_write": off_free,
+                "planes_cost_ms": (None if on_free is None or off_free is None
+                                   else on_free - off_free),
+                "planes_on_steps": planes_on, "planes_off_steps": planes_off,
+                "example_llama3_1b_16_layers": (results.get("example_loop_ms")),
+                "in_capture": in_capture, "in_capture_mean": cap_mean,
+                "capture_cost_ms": (None if on_free is None
+                                    else cap_mean - on_free)}
+        except Exception:
+            # what the coordinator and the rank said, for the failure
+            for path in (ft_dir / "events.jsonl", log_out):
+                if path.exists():
+                    print(f"--- {path.name}\n{path.read_text()[-8000:]}",
+                          file=sys.stderr)
+            print(json.dumps({"ft_llama3_1b_partial": out}, default=str),
+                  file=sys.stderr)
+            raise
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"ft_llama3_1b on {results.get('card')}: detect "
+              f"{out['detect_latency_s']:.3f} s, recover "
+              f"{out['time_to_recover_s']:.2f} s, drain "
+              f"{out['drain_latency_s']:.2f} s, step ms planes on/off "
+              f"{out['step_ms']['planes_on_no_write']:.2f}/"
+              f"{out['step_ms']['planes_off_no_write']:.2f}, in capture "
+              f"{cap_mean:.2f}, phase {out['phase_s']:.1f} s", flush=True)
+        print(json.dumps({"ft_llama3_1b": out}), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 
@@ -1666,6 +2246,7 @@ def _kernels_line(results):
     train, tiny = results["train_launches"], results["train_tiny_launches"]
     example = results["example_launches"]
     packed = results["example_packed_launches"]
+    ft = results["ft_launches"]
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
 
@@ -1706,7 +2287,8 @@ def _kernels_line(results):
               {"serve_llama3_1b": serve["flash_fwd_sm90"],
                "train_llama3_1b": train["k1_sm90"],
                "example_llama3_1b": example["k1_sm90"],
-               "example_llama3_1b_packed": packed["k1_sm90"]},
+               "example_llama3_1b_packed": packed["k1_sm90"],
+               "ft_llama3_1b": ft["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"]},
@@ -1722,13 +2304,15 @@ def _kernels_line(results):
               {"train_llama3_1b": train["delta"],
                "train_tiny_fp32": tiny["delta"],
                "example_llama3_1b": example["delta"],
-               "example_llama3_1b_packed": packed["delta"]}, bwd,
+               "example_llama3_1b_packed": packed["delta"],
+               "ft_llama3_1b": ft["delta"]}, bwd,
               "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
               {"train_llama3_1b": train["k2_sm90"],
                "example_llama3_1b": example["k2_sm90"],
-               "example_llama3_1b_packed": packed["k2_sm90"]},
+               "example_llama3_1b_packed": packed["k2_sm90"],
+               "ft_llama3_1b": ft["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
               {"train_tiny_fp32": tiny["k2_mma"]},
@@ -1739,7 +2323,8 @@ def _kernels_line(results):
         entry("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90.cu", 308,
               {"train_llama3_1b": train["k3_sm90"],
                "example_llama3_1b": example["k3_sm90"],
-               "example_llama3_1b_packed": packed["k3_sm90"]},
+               "example_llama3_1b_packed": packed["k3_sm90"],
+               "ft_llama3_1b": ft["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
               {"train_tiny_fp32": tiny["k3_mma"]},
@@ -1748,10 +2333,10 @@ def _kernels_line(results):
         entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308, {},
               fma_beside(of(bwd, "mma", "dkv"), "dkv"), "fp32_d16_gqa2"),
     ]
-    # A kernel of a path that no run of that path launched fails the line
-    # (the old fma kernels of K1, K2 and K3 have no path).
-    idle = [k["name"] for k in kernels
-            if k["launches_by_path"] and not k["launches"]]
+    # A kernel that a run of one of its paths never launched fails the
+    # line (the old fma kernels of K1, K2 and K3 have no path).
+    idle = [f"{k['name']} on {path}" for k in kernels
+            for path, n in k["launches_by_path"].items() if not n]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
     return {"kernels": kernels}
@@ -1787,7 +2372,8 @@ def main(argv=None) -> int:
            "serve_tiny_fp32": lambda: phase_serve_tiny_fp32(results),
            "train_llama3_1b": lambda: phase_train_llama3_1b(results),
            "train_tiny_fp32": lambda: phase_train_tiny_fp32(results),
-           "example_llama3_1b": lambda: phase_example_llama3_1b(results)}
+           "example_llama3_1b": lambda: phase_example_llama3_1b(results),
+           "ft_llama3_1b": lambda: phase_ft_llama3_1b(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

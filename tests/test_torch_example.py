@@ -13,8 +13,9 @@
   from step 3`` and its losses for steps 4-6 equal an uninterrupted run's
   exactly.
 * Packed: ``--packed`` runs 3 steps with finite losses.
-* Refusals: each unported plane's env variable and each unported flag
-  exits non-zero naming what is missing; a step that will not restore
+* Refusals: each unported plane's env variable (the input service and
+  the compile cache) and each unported flag exits non-zero naming what is
+  missing; a step that will not restore
   exits with ``RESTORE_FAILED_RC``; without ``--device cpu`` there is no
   card here, and the example raises instead of training on the CPU.
 """
@@ -231,8 +232,7 @@ def test_packed_runs(tmp_path):
     assert (tmp_path / "data" / "corpus.jsonl").exists()
 
 
-PLANES = ["TPUCFN_FT_DIR", "TPUCFN_INPUT_ADDRS", "TPUCFN_OBS_PORT",
-          "TPUCFN_COMPILE_CACHE_ADDRS"]
+PLANES = ["TPUCFN_INPUT_ADDRS", "TPUCFN_COMPILE_CACHE_ADDRS"]
 
 
 @pytest.mark.parametrize("var", PLANES)
@@ -248,7 +248,7 @@ def test_unported_plane_env_is_refused(var, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--profile"], "B3"), (["--profile-server", "9001"], "B3"),
+    (["--profile-server", "9001"], "B3"),
     (["--fsdp", "2"], "C2"), (["--tensor", "2"], "C2"),
     (["--context", "2"], "C3"), (["--ring-flash"], "C3"),
     (["--moe-experts", "4"], "C4"), (["--pipeline", "2"], "C5"),
@@ -288,13 +288,14 @@ def test_eval_every_without_a_held_out_split_is_refused(tmp_path, no_group):
 
 
 def test_refused_plane_exits_non_zero_as_a_program(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(REPO), TPUCFN_FT_DIR=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               TPUCFN_INPUT_ADDRS="127.0.0.1:9000")
     r = subprocess.run([sys.executable, str(EXAMPLE), "--device", "cpu",
                         "--run-dir", str(tmp_path / "run"), *TINY],
                        env=env, cwd=REPO, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 1
-    assert "heartbeat and drain" in r.stderr and "ROADMAP" in r.stderr
+    assert "input service" in r.stderr and "ROADMAP" in r.stderr
 
 
 def test_a_step_that_will_not_restore_exits_restore_failed(tmp_path,

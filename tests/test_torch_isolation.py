@@ -23,11 +23,24 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("obs/registry.py", "obs/registry.py"),
             ("obs/trace.py", "obs/trace.py"),
             ("data/records.py", "data/records.py"),
-            ("data/store.py", "data/store.py")]
+            ("data/store.py", "data/store.py"),
+            ("ft/heartbeat.py", "ft/heartbeat.py"),
+            ("ft/policy.py", "ft/policy.py"),
+            ("ft/preempt.py", "ft/preempt.py"),
+            ("ft/events.py", "ft/events.py"),
+            ("ft/journal.py", "ft/journal.py"),
+            ("ft/chaos.py", "ft/chaos.py"),
+            ("ft/coordinator.py", "ft/coordinator.py"),
+            ("provision/control_plane.py", "provision/control_plane.py"),
+            ("provision/provisioner.py", "provision/provisioner.py"),
+            ("provision/policy.py", "provision/policy.py"),
+            ("obs/server.py", "obs/server.py")]
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)
-METRICS_OWN = ("StepTimer", "MetricLogger")
+METRICS_OWN = ("StepTimer", "MetricLogger", "device_memory_stats",
+               "register_device_gauges", "register_kernel_gauges",
+               "kernel_launch_counts")
 # (copy in the port, original in the JAX package, definition) where the
 # port keeps one function of a module that it otherwise rewrites
 COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
@@ -49,12 +62,74 @@ COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
                ("bootstrap/contract.py", "bootstrap/contract.py",
                 "EnvContract"),
                ("mesh/mesh.py", "mesh/mesh.py", "MeshSpec"),
-               ("ft/policy.py", "ft/policy.py", "parse_ckpt_blacklist"),
+               ("bootstrap/contract.py", "bootstrap/contract.py",
+                "converge"),
+               ("bootstrap/contract.py", "bootstrap/contract.py",
+                "shrink_contract"),
+               ("spec/cluster.py", "spec/cluster.py", "AcceleratorType"),
+               ("spec/cluster.py", "spec/cluster.py", "_sku"),
+               ("launch/launcher.py", "launch/launcher.py", "Transport"),
+               ("launch/launcher.py", "launch/launcher.py", "LocalTransport"),
+               ("launch/launcher.py", "launch/launcher.py", "SSHTransport"),
+               ("launch/launcher.py", "launch/launcher.py", "Launcher"),
+               ("launch/launcher.py", "launch/launcher.py",
+                "run_with_restarts"),
+               ("launch/launcher.py", "launch/launcher.py",
+                "main_argv_for_script"),
+               ("mesh/mesh.py", "mesh/mesh.py", "MeshSpec"),
                ("obs/goodput.py", "obs/goodput.py", "device_peak_flops"),
                ("obs/goodput.py", "obs/goodput.py", "ledger_path"),
                ("obs/goodput.py", "obs/goodput.py", "GoodputLedger"),
+               ("obs/goodput.py", "obs/goodput.py", "parse_jsonl_line"),
+               ("obs/goodput.py", "obs/goodput.py", "read_jsonl_counting"),
+               ("obs/goodput.py", "obs/goodput.py", "host_id_from_path"),
+               ("obs/goodput.py", "obs/goodput.py", "read_goodput_dir"),
+               ("obs/goodput.py", "obs/goodput.py",
+                "fleet_window_observation"),
+               ("obs/flight.py", "obs/flight.py", "flight_path"),
+               ("obs/flight.py", "obs/flight.py", "incident_flight_path"),
+               ("obs/flight.py", "obs/flight.py", "hbm_watermark"),
+               ("obs/flight.py", "obs/flight.py", "write_flight_dump"),
+               ("obs/flight.py", "obs/flight.py", "read_flight_file"),
+               ("obs/flight.py", "obs/flight.py", "read_flight_dir"),
+               ("obs/profiler.py", "obs/profiler.py", "ProfilerBusy"),
+               ("obs/timeline.py", "obs/timeline.py", "ClockProbe"),
+               ("obs/timeline.py", "obs/timeline.py", "probe_clock"),
                ("train/trainer.py", "train/trainer.py", "RestoreFailure"),
                ("train/trainer.py", "train/trainer.py", "TrainerObs")]
+# (copy, original, class, methods) where the port rewrites part of a
+# class: the listed methods are copies.  ClusterSpec's TPU defaults,
+# FlightRecorder's device probe (``sample_device``) and ProfileCapture's
+# capture on torch.profiler are the port's own.
+COPIED_METHODS = [
+    ("spec/cluster.py", "spec/cluster.py", "ClusterSpec",
+     ("__post_init__", "sku", "num_hosts", "num_chips", "to_json",
+      "from_json", "load", "save")),
+    ("obs/flight.py", "obs/flight.py", "FlightRecorder",
+     ("record", "snapshot", "dump", "install_dump_handlers",
+      "_dump_quietly")),
+    ("obs/profiler.py", "obs/profiler.py", "ProfileCapture", ("__call__",)),
+]
+# (copy, name, original module, name there): module constants the port
+# keeps its own copy of.
+COPIED_CONSTANTS = [
+    ("bootstrap/contract.py", "COORDINATOR_PORT", "bootstrap/contract.py",
+     "COORDINATOR_PORT"),
+    ("obs/goodput.py", "RECORDED_BUCKETS", "obs/goodput.py",
+     "RECORDED_BUCKETS"),
+    ("obs/goodput.py", "LEDGER_GLOB", "obs/goodput.py", "LEDGER_GLOB"),
+    ("obs/flight.py", "FLIGHT_GLOB", "obs/flight.py", "FLIGHT_GLOB"),
+    ("obs/flight.py", "FLIGHT_FILE_KINDS", "obs/flight.py",
+     "FLIGHT_FILE_KINDS"),
+    ("obs/flight.py", "HBM_WATERMARK_THRESHOLD", "obs/flight.py",
+     "HBM_WATERMARK_THRESHOLD"),
+    ("obs/flight.py", "HBM_WATERMARK_SUSTAIN_S", "obs/flight.py",
+     "HBM_WATERMARK_SUSTAIN_S"),
+    ("launch/launcher.py", "DEFAULT_INPUT_PORT", "data/service.py",
+     "DEFAULT_INPUT_PORT"),
+    ("launch/launcher.py", "COMPILE_CACHE_ADDRS_ENV",
+     "compilecache/service.py", "COMPILE_CACHE_ADDRS_ENV"),
+]
 
 
 def _port_files():
@@ -167,3 +242,41 @@ def test_copied_definitions_equal_originals(copy, original, name):
     orig = _definitions((REPO / "tpucfn" / original).read_text())
     # import statements inside a definition name the port's modules
     assert _without_imports(ported[name]) == _without_imports(orig[name])
+
+
+def _methods(src: str, cls: str) -> dict[str, str]:
+    lines = src.splitlines()
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {m.name: textwrap.dedent("\n".join(
+                lines[m.lineno - 1 - len(m.decorator_list):m.end_lineno]))
+            for m in node.body if isinstance(m, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize(
+    "copy,original,cls,name",
+    [(c, o, k, m) for c, o, k, ms in COPIED_METHODS for m in ms],
+    ids=[f"{k}.{m}" for _, _, k, ms in COPIED_METHODS for m in ms])
+def test_copied_methods_equal_originals(copy, original, cls, name):
+    ported = _methods((PORT / copy).read_text(), cls)
+    orig = _methods((REPO / "tpucfn" / original).read_text(), cls)
+    assert _without_imports(ported[name]) == _without_imports(orig[name])
+
+
+def _constants(src: str) -> dict[str, str]:
+    out = {}
+    for node in ast.parse(src).body:
+        target = (node.targets[0] if isinstance(node, ast.Assign)
+                  else node.target if isinstance(node, ast.AnnAssign)
+                  else None)
+        if isinstance(target, ast.Name) and node.value is not None:
+            out[target.id] = ast.dump(node.value)
+    return out
+
+
+@pytest.mark.parametrize("copy,name,original,orig_name", COPIED_CONSTANTS,
+                         ids=[f"{c}:{n}" for c, n, _, _ in COPIED_CONSTANTS])
+def test_copied_constants_equal_originals(copy, name, original, orig_name):
+    ported = _constants((PORT / copy).read_text())
+    orig = _constants((REPO / "tpucfn" / original).read_text())
+    assert ported[name] == orig[orig_name]

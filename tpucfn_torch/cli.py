@@ -1,4 +1,29 @@
-"""Command line of the port: ``python -m tpucfn_torch.cli serve``.
+"""Command line of the port: ``python -m tpucfn_torch.cli <command>``.
+
+The cluster commands are the port of ``tpucfn/cli/main.py``'s::
+
+    python -m tpucfn_torch.cli create-stack --name demo --accelerator h100-1
+    python -m tpucfn_torch.cli status --name demo
+    python -m tpucfn_torch.cli env --name demo       # eval-able contract
+    python -m tpucfn_torch.cli launch --name demo --ft -- \
+        python -m tpucfn_torch.examples.llama3_8b_fsdp --model 1b ...
+    python -m tpucfn_torch.cli kill-host --name demo --host 0
+    python -m tpucfn_torch.cli heal --name demo
+    python -m tpucfn_torch.cli delete --name demo
+
+State lives in ``--state-dir`` (default ``$TPUCFN_TORCH_STATE_DIR`` or
+``~/.tpucfn_torch``; not the JAX package's ``$TPUCFN_STATE_DIR``, whose
+state file holds TPU accelerators that the port's registry does not know) through the fake
+control plane; ``--backend gcp`` (TPU queued resources) is refused.
+``launch`` fans the command out with the env contract and, with
+``--ft``, runs it under the gang coordinator (heartbeats, restarts with
+a budget, preemption drain, checkpoint-corruption retry, chaos specs).
+The launch planes that are not ported exit 2 naming their ROADMAP item:
+the input service (``--input-*``, ``--ft-restart-input-hosts``: Queue 1
+B2), the compile cache (``--compile-cache*``: B4), the supervised
+coordinator (``--supervise*``: B5), the network chaos proxy
+(``--chaos-proxy`` and ``net_*`` chaos events: B6) and the provisioner
+policy loop (``--provision-*``, ``--defer-input-plane``: B7).
 
 ``serve`` is the single-replica path of ``tpucfn serve``
 (``tpucfn/cli/main.py:cmd_serve``): continuous-batching inference over a
@@ -14,11 +39,61 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+from pathlib import Path
 
 import numpy as np
 
+from tpucfn_torch.bootstrap import converge
+from tpucfn_torch.launch import Launcher, LocalTransport, SSHTransport
+from tpucfn_torch.provision import FakeControlPlane, Provisioner
 from tpucfn_torch.serve.engine import LLAMA_PRESETS
+from tpucfn_torch.spec import ClusterSpec
+
+# (flag, argparse dest, what it asks for, ROADMAP item) for each launch
+# option of the JAX package whose plane the port does not have.
+REFUSED_LAUNCH_FLAGS = (
+    ("--input-hosts", "input_hosts", "the disaggregated input service",
+     "Queue 1 B2"),
+    ("--input-port", "input_port", "the disaggregated input service",
+     "Queue 1 B2"),
+    ("--input-cmd", "input_cmd", "the disaggregated input service",
+     "Queue 1 B2"),
+    ("--ft-restart-input-hosts", "ft_restart_input_hosts",
+     "the disaggregated input service", "Queue 1 B2"),
+    ("--compile-cache", "compile_cache", "the fleet compile cache",
+     "Queue 1 B4"),
+    ("--compile-cache-dir", "compile_cache_dir", "the fleet compile cache",
+     "Queue 1 B4"),
+    ("--compile-cache-port", "compile_cache_port", "the fleet compile cache",
+     "Queue 1 B4"),
+    ("--compile-cache-advertise", "compile_cache_advertise",
+     "the fleet compile cache", "Queue 1 B4"),
+    ("--supervise", "supervise", "the supervised coordinator",
+     "Queue 1 B5"),
+    ("--supervise-restarts", "supervise_restarts",
+     "the supervised coordinator", "Queue 1 B5"),
+    ("--chaos-proxy", "chaos_proxy", "the network chaos proxy",
+     "Queue 1 B6"),
+    ("--provision-policy", "provision_policy",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--provision-interval", "provision_interval",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--provision-grow-threshold", "provision_grow_threshold",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--provision-shrink-threshold", "provision_shrink_threshold",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--provision-cooldown", "provision_cooldown",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--provision-goodput-dir", "provision_goodput_dir",
+     "the provisioner policy loop", "Queue 1 B7"),
+    ("--defer-input-plane", "defer_input_plane",
+     "the provisioner policy loop", "Queue 1 B7"),
+)
+# Flags of the list above that take no value.
+_REFUSED_SWITCHES = ("--ft-restart-input-hosts", "--compile-cache",
+                     "--supervise", "--defer-input-plane")
 
 
 def cmd_serve(args) -> int:
@@ -67,9 +142,399 @@ def cmd_serve(args) -> int:
     return 0 if ok == len(prompts) else 1
 
 
+def _refuse(what: str) -> int:
+    print(f"error: {what}", file=sys.stderr)
+    return 2
+
+
+def _control_plane(args):
+    state = Path(args.state_dir).expanduser() / "control_plane.json"
+    # steps_to_provision=1: CLI ticks are driven by wait_active polling.
+    return FakeControlPlane(steps_to_provision=1, state_file=str(state))
+
+
+def _run_dir(args, name: str) -> Path:
+    return Path(args.state_dir).expanduser() / "clusters" / name
+
+
+def cmd_create_stack(args) -> int:
+    if args.spec:
+        spec = ClusterSpec.load(args.spec)
+    else:
+        if not args.name:
+            return _refuse("--name (or --spec file) required")
+        spec = ClusterSpec(
+            name=args.name,
+            accelerator=args.accelerator,
+            storage_path=args.storage or "",
+        )
+    prov = Provisioner(_control_plane(args))
+    rec = prov.create(spec)
+    contract = converge(rec, _run_dir(args, spec.name))
+    print(f"CREATE_COMPLETE {spec.name}")
+    print(f"  accelerator:  {spec.accelerator} ({spec.num_hosts} hosts, "
+          f"{spec.num_chips} chips)")
+    print(f"  coordinator:  {contract.coordinator}")
+    print(f"  hostfile:     {contract.workers_path}")
+    print(f"  env file:     {_run_dir(args, spec.name) / 'env.sh'}")
+    print(f"  next:         python -m tpucfn_torch.cli launch --name "
+          f"{spec.name} -- python train.py")
+    return 0
+
+
+def cmd_status(args) -> int:
+    rec = _control_plane(args).describe(args.name)
+    print(f"{args.name}: {rec.state.value} gen={rec.generation}")
+    for h in rec.hosts:
+        print(f"  host{h.host_id} {h.address} {'healthy' if h.healthy else 'DEAD'}")
+    return 0
+
+
+def cmd_delete(args) -> int:
+    Provisioner(_control_plane(args)).delete(args.name)
+    print(f"DELETE_COMPLETE {args.name}")
+    return 0
+
+
+def cmd_env(args) -> int:
+    rec = _control_plane(args).describe(args.name)
+    contract = converge(rec, _run_dir(args, args.name))
+    for k, v in sorted(contract.to_env().items()):
+        print(f"export {k}={v!r}")
+    return 0
+
+
+def cmd_kill_host(args) -> int:
+    """Fault injection: mark a host dead so monitors and tests can
+    exercise the recovery path."""
+    _control_plane(args).kill_host(args.name, args.host)
+    print(f"host {args.host} of {args.name} marked dead")
+    return 0
+
+
+def cmd_heal(args) -> int:
+    prov = Provisioner(_control_plane(args))
+    rec = prov.ensure_healthy(args.name)
+    converge(rec, _run_dir(args, args.name))
+    print(f"{args.name}: {rec.state.value} gen={rec.generation} "
+          f"({len(rec.hosts)} healthy hosts)")
+    return 0
+
+
+def _refused_launch_flag(args) -> str | None:
+    for flag, dest, plane, item in REFUSED_LAUNCH_FLAGS:
+        if getattr(args, dest, None) not in (None, False):
+            return (f"{flag}: {plane} is not ported to tpucfn_torch yet "
+                    f"(ROADMAP {item})")
+    return None
+
+
+def cmd_launch(args) -> int:
+    """``tpucfn launch`` (``tpucfn/cli/main.py:cmd_launch``) without the
+    planes the port does not have, which exit 2 before anything runs."""
+    refused = _refused_launch_flag(args)
+    if refused:
+        return _refuse(refused)
+    # A launch-level chaos spec replays against the gang coordinator's
+    # supervision clock: kills, hangs, heartbeat delays, preemption
+    # notices, host loss and checkpoint corruption.
+    chaos_spec = None
+    if args.chaos:
+        if not args.ft:
+            return _refuse("--chaos needs --ft (chaos specs replay against "
+                           "the gang coordinator's supervision clock)")
+        from tpucfn_torch.ft.chaos import ChaosSpec
+
+        raw = args.chaos
+        try:
+            if not raw.lstrip().startswith("{"):
+                raw = Path(raw).read_text()
+            chaos_spec = ChaosSpec.from_json(raw)
+        except (OSError, ValueError, TypeError) as e:
+            return _refuse(f"bad --chaos spec: {e}")
+        net = sorted({e.action for e in chaos_spec.events
+                      if e.action.startswith("net_")})
+        if net:
+            return _refuse(f"--chaos schedules {', '.join(net)}: the network "
+                           "chaos proxy is not ported to tpucfn_torch yet "
+                           "(ROADMAP Queue 1 B6)")
+    rec = _control_plane(args).describe(args.name)
+    from tpucfn_torch.provision.control_plane import ClusterState
+
+    if rec.state is not ClusterState.ACTIVE:
+        print(f"error: cluster {args.name} is {rec.state.value}, not ACTIVE",
+              file=sys.stderr)
+        return 1
+    contract = converge(rec, _run_dir(args, args.name))
+    transport = SSHTransport() if args.transport == "ssh" else LocalTransport()
+    ft_dir = _run_dir(args, args.name) / "ft" if args.ft else None
+    argv = list(args.cmd)
+    if argv and argv[0] == "--":
+        argv = argv[1:]
+    if not argv:
+        return _refuse("no command given (use: python -m tpucfn_torch.cli "
+                       "launch --name X -- cmd...)")
+    inject = None
+    if args.kill_host_after:
+        host_s, _, secs = args.kill_host_after.partition(":")
+        try:
+            inject = (int(host_s), float(secs))
+        except ValueError:
+            return _refuse(f"--kill-host-after wants HOST:SECONDS (e.g. "
+                           f"1:30), got {args.kill_host_after!r}")
+        if not 0 <= inject[0] < len(contract.hosts()):
+            return _refuse(f"--kill-host-after host {inject[0]} out of range "
+                           f"(cluster has {len(contract.hosts())} hosts)")
+    registry = None
+    if args.obs_port:
+        from tpucfn_torch.obs.registry import MetricRegistry
+
+        registry = MetricRegistry(labels={"role": "supervisor"})
+    launcher = Launcher(contract, transport,
+                        obs_base_port=args.obs_port or None,
+                        ft_dir=str(ft_dir) if ft_dir else None,
+                        ft_heartbeat_s=(args.ft_heartbeat_interval
+                                        if args.ft else None))
+    from tpucfn_torch.launch import run_with_restarts
+
+    obs_srv = None
+    monitor = None
+    # The launched gang is hosts()[:workers_count] (Launcher.launch's
+    # precedence rule): what the monitor judges and whose ports serve.
+    n_launched = len(contract.hosts()[:contract.workers_count])
+    if args.ft:
+        # Heartbeat monitor over the dir every rank writes into.  Startup
+        # grace must cover a rank's boot (torch import, loading the
+        # kernel libraries, init or restore, step 1): a booting gang that
+        # has not beaten yet is not hung.  Crash detection (process exit)
+        # is unaffected by it.
+        from tpucfn_torch.ft import HeartbeatMonitor, MonitorConfig
+
+        monitor = HeartbeatMonitor(
+            ft_dir, expected_hosts=n_launched,
+            config=MonitorConfig(
+                interval_s=args.ft_heartbeat_interval,
+                startup_grace_s=args.ft_startup_grace))
+    # /healthz late-binds to the coordinator once it exists so the probe
+    # carries journal/adoption state on top of the monitor's fleet view;
+    # before that (and without --ft) it falls back to the monitor or
+    # plain liveness.
+    coord_ref: dict = {}
+
+    def _health_fn():
+        c = coord_ref.get("coord")
+        if c is not None:
+            return c.health()
+        if monitor is not None:
+            return monitor.health()
+        return True, {}
+
+    if args.obs_port:
+        # The supervisor owns the base port, the ranks get
+        # base + 1 + host_id (Launcher.host_env).
+        from tpucfn_torch.obs.server import start_obs_server
+
+        obs_srv = start_obs_server(
+            registry, port=args.obs_port, role="supervisor",
+            health_fn=_health_fn if args.ft else None)
+        print(f"supervisor obs endpoint: {obs_srv.url()} "
+              f"(hosts at ports {args.obs_port + 1}..."
+              f"{args.obs_port + n_launched})", file=sys.stderr)
+    try:
+        if args.ft:
+            import random
+            import time as _time
+
+            from tpucfn_torch.ft import (GangCoordinator, RestartBudget,
+                                         StragglerGuard, policy_from_name)
+
+            budget = RestartBudget(
+                args.ft_restart_budget if args.ft_restart_budget is not None
+                else args.restarts,
+                backoff_s=args.ft_backoff, rng=random.Random(args.ft_seed))
+            # Elastic shrink: before relaunching a failed host, ask the
+            # control plane whether it still owns a healthy machine at
+            # that address (kill-host makes the next recovery re-converge
+            # at N-1 instead of relaunching a ghost).
+            cp = _control_plane(args)
+            _reacquire_cache: dict = {"t": -10.0, "healthy": frozenset()}
+
+            def _reacquire(addr: str, _name=args.name, _cp=cp) -> bool:
+                # one describe() snapshot per incident burst (1 s TTL)
+                now = _time.monotonic()
+                if now - _reacquire_cache["t"] > 1.0:
+                    _reacquire_cache["healthy"] = frozenset(
+                        h.address for h in _cp.describe(_name).hosts
+                        if h.healthy)
+                    _reacquire_cache["t"] = now
+                return addr in _reacquire_cache["healthy"]
+
+            coordinator = GangCoordinator(
+                launcher, argv,
+                policy=policy_from_name(args.ft_policy, budget),
+                monitor=monitor, ft_dir=ft_dir, registry=registry,
+                kill_host_after=inject,
+                ckpt_dir=_run_dir(args, args.name) / "ckpt",
+                drain_grace_s=args.ft_drain_grace,
+                allow_shrink=not args.ft_no_shrink,
+                reacquire_check=_reacquire,
+                max_ckpt_retries=args.ft_max_ckpt_retries,
+                straggler_guard=StragglerGuard(
+                    hysteresis_s=args.ft_straggler_hysteresis,
+                    flap_budget=args.ft_straggler_flap_budget),
+                adopt=(True if args.adopt
+                       else False if args.no_adopt else "auto"),
+                chaos=chaos_spec)
+            coord_ref["coord"] = coordinator
+            rc = coordinator.run()
+        else:
+            rc = run_with_restarts(launcher, argv, max_restarts=args.restarts,
+                                   kill_host_after=inject, registry=registry)
+    finally:
+        if obs_srv is not None:
+            obs_srv.close()
+    print(f"launch finished rc={rc}")
+    return rc
+
+
+def _add_launch_parser(sub) -> None:
+    l = sub.add_parser("launch", help="fan a command out across all hosts")
+    l.add_argument("--name", required=True)
+    l.add_argument("--transport", choices=["local", "ssh"], default="local")
+    l.add_argument("--restarts", type=int, default=0,
+                   help="auto-relaunch the gang up to N times on failure "
+                        "(jobs resume from their latest checkpoint)")
+    l.add_argument("--kill-host-after", metavar="HOST:SECONDS",
+                   help="fault injection: SIGKILL host's rank after N "
+                        "seconds on the first attempt (recovery drill)")
+    l.add_argument("--obs-port", type=int, default=0, metavar="BASE",
+                   help="observability plane: supervisor /metrics on BASE, "
+                        "each host's process on BASE+1+host_id via "
+                        "TPUCFN_OBS_PORT (0 = off)")
+    l.add_argument("--ft", action="store_true",
+                   help="fault-tolerance plane: per-host heartbeats "
+                        "(TPUCFN_FT_DIR fan-out), failure detection, and "
+                        "gang-coordinated recovery via tpucfn_torch.ft")
+    l.add_argument("--ft-heartbeat-interval", type=float, default=1.0,
+                   metavar="SECONDS",
+                   help="heartbeat write interval; detection thresholds "
+                        "scale off it (suspect 3x, dead 6x)")
+    l.add_argument("--ft-restart-budget", type=int, default=None,
+                   metavar="N",
+                   help="recoveries allowed before giving up "
+                        "(default: --restarts)")
+    l.add_argument("--ft-startup-grace", type=float, default=120.0,
+                   metavar="SECONDS",
+                   help="no-heartbeat-yet window after every (re)launch "
+                        "before a silent host counts as hung: must cover a "
+                        "rank's boot (torch import, kernel libraries, init "
+                        "or restore, step 1); crash detection is unaffected")
+    l.add_argument("--ft-policy", choices=["gang", "solo"], default="gang",
+                   help="recovery shape: gang = kill all + relaunch all + "
+                        "resume from latest checkpoint; solo = restart "
+                        "only the dead host into the same gang")
+    l.add_argument("--ft-backoff", type=float, default=1.0, metavar="SECONDS",
+                   help="base restart backoff; doubles per restart with "
+                        "seeded jitter (--ft-seed)")
+    l.add_argument("--ft-seed", type=int, default=0,
+                   help="seed for backoff jitter (determinism: same seed "
+                        "replays the same delays)")
+    l.add_argument("--ft-drain-grace", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="preemption drain: how long to wait for clean "
+                        "exits when the notice carries no lead time (a "
+                        "shorter notice lead wins)")
+    l.add_argument("--ft-no-shrink", action="store_true",
+                   help="disable elastic N-1 shrink: a host the control "
+                        "plane lost gives up instead of re-converging "
+                        "the contract at fewer hosts")
+    l.add_argument("--ft-straggler-hysteresis", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="sustained step-lag required before a straggler "
+                        "is evicted (solo-restarted)")
+    l.add_argument("--ft-straggler-flap-budget", type=int, default=3,
+                   metavar="N",
+                   help="brief lag episodes tolerated per host before a "
+                        "chronic flapper is evicted without waiting out "
+                        "the hysteresis window")
+    l.add_argument("--ft-max-ckpt-retries", type=int, default=3,
+                   metavar="N",
+                   help="checkpoint-corruption retries (each blacklists "
+                        "one bad step and resumes from the previous) "
+                        "before the normal restart policy decides")
+    adopt_group = l.add_mutually_exclusive_group()
+    adopt_group.add_argument(
+        "--adopt", action="store_true",
+        help="crash-safety: replay the write-ahead journal and adopt the "
+             "running fleet instead of launching a new one (the default "
+             "whenever an unfinished journal exists under the ft dir)")
+    adopt_group.add_argument(
+        "--no-adopt", action="store_true",
+        help="always launch fresh, even over an unfinished journal (the "
+             "previous run's journal is rotated aside, its fleet is NOT "
+             "stopped)")
+    l.add_argument("--chaos", metavar="SPEC",
+                   help="deterministic fault injection (needs --ft): a "
+                        "ChaosSpec JSON file (or inline JSON) replayed "
+                        "against the coordinator: kill, hang, "
+                        "delay_heartbeats, preempt_notice, lose_host, "
+                        "corrupt_ckpt")
+    for flag, dest, plane, item in REFUSED_LAUNCH_FLAGS:
+        refused = f"refused: {plane} is not ported (ROADMAP {item})"
+        if flag in _REFUSED_SWITCHES:
+            l.add_argument(flag, dest=dest, action="store_true",
+                           default=None, help=refused)
+        else:
+            l.add_argument(flag, dest=dest, metavar="X",
+                           action="append" if flag == "--chaos-proxy"
+                           else "store", help=refused)
+    l.add_argument("cmd", nargs=argparse.REMAINDER)
+    l.set_defaults(fn=cmd_launch)
+
+
+def _add_cluster_parsers(sub) -> None:
+    c = sub.add_parser("create-stack", help="provision a cluster")
+    c.add_argument("--name")
+    c.add_argument("--spec", help="cluster spec JSON file")
+    c.add_argument("--accelerator", default="h100-1",
+                   help="h100-1 (one host, one card) or cpu-1 (the fake "
+                        "test platform)")
+    c.add_argument("--storage", help="shared storage root")
+    c.set_defaults(fn=cmd_create_stack)
+
+    s = sub.add_parser("status", help="describe a cluster")
+    s.add_argument("--name", required=True)
+    s.set_defaults(fn=cmd_status)
+
+    d = sub.add_parser("delete", help="delete a cluster")
+    d.add_argument("--name", required=True)
+    d.set_defaults(fn=cmd_delete)
+
+    e = sub.add_parser("env", help="print the cluster env contract (eval-able)")
+    e.add_argument("--name", required=True)
+    e.set_defaults(fn=cmd_env)
+
+    _add_launch_parser(sub)
+
+    k = sub.add_parser("kill-host", help="fault injection: mark a host dead")
+    k.add_argument("--name", required=True)
+    k.add_argument("--host", type=int, required=True)
+    k.set_defaults(fn=cmd_kill_host)
+
+    h = sub.add_parser("heal", help="health check; re-acquire if hosts died")
+    h.add_argument("--name", required=True)
+    h.set_defaults(fn=cmd_heal)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m tpucfn_torch.cli")
-    sub = ap.add_subparsers(dest="cmd", required=True)
+    ap.add_argument("--state-dir", default=os.environ.get(
+        "TPUCFN_TORCH_STATE_DIR", "~/.tpucfn_torch"))
+    ap.add_argument("--backend", default="fake",
+                    help="control plane: only 'fake' (a local state file) "
+                         "is ported")
+    sub = ap.add_subparsers(dest="command", required=True)
+    _add_cluster_parsers(sub)
     sv = sub.add_parser(
         "serve", help="continuous-batching inference over a prompt workload "
                       "(paged KV cache, bucketed prefills, admission control)")
@@ -106,6 +571,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.backend != "fake":
+        return _refuse(f"--backend {args.backend}: only the fake control "
+                       "plane is ported to tpucfn_torch; the JAX package's "
+                       "gcp backend provisions TPU queued resources")
     return args.fn(args)
 
 

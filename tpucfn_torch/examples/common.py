@@ -16,14 +16,25 @@ so it trains on the batches an uninterrupted run would (the JAX loop
 starts its stream again at the first batch), and a relaunch's losses
 equal an uninterrupted run's.
 
-Refuse, never skip: the JAX loop starts planes this port does not have
-when the launcher's environment asks for them.  With any of
-``TPUCFN_FT_DIR`` (heartbeats and drain), ``TPUCFN_INPUT_ADDRS`` (the
-input service), ``TPUCFN_COMPILE_CACHE_ADDRS`` (the compile cache),
-``TPUCFN_OBS_PORT`` (the obs server, flight recorder and profiler), or
-``--profile`` / ``--profile-server``, the loop exits non-zero and names
-the plane: a coordinator that got no heartbeats would declare the rank
-dead.
+The planes the launcher fans out, wired as the JAX loop wires them:
+
+* ``TPUCFN_FT_DIR``: a :class:`~tpucfn_torch.ft.HeartbeatWriter` beats
+  every ``TPUCFN_FT_HEARTBEAT_S`` with the latest step, and the loop
+  checks ``drain_requested`` after each step's save: a drain breaks out
+  to the final force-save, the zero-lost-work stop of a preemption.
+* ``TPUCFN_OBS_PORT``: the per-rank obs server (``/metrics`` with the
+  card's memory and the kernels' launch counts, ``/healthz`` with the
+  step, ``/flightrecorder`` from the :class:`FlightRecorder`, also dumped
+  under ``run_dir/flight`` on SIGTERM and at exit, and ``POST /profile``,
+  a ``torch.profiler`` capture that the loop runs between step
+  boundaries, so it holds the training thread's ops).
+* ``--profile``: ``torch.profiler`` around the whole loop.
+
+Refuse, never skip: with ``TPUCFN_INPUT_ADDRS`` (the input service) or
+``TPUCFN_COMPILE_CACHE_ADDRS`` (the compile cache) set, or with
+``--profile-server`` (XProf's live attach, which has no PyTorch
+counterpart: ``POST /profile`` captures instead), the loop exits
+non-zero and names what is missing.
 """
 
 from __future__ import annotations
@@ -34,12 +45,9 @@ import os
 import time
 from pathlib import Path
 
-# (env var or flag, plane, ROADMAP item) for each plane the loop refuses.
+# (env var, plane, ROADMAP item) for each plane the loop refuses.
 UNPORTED_PLANES = (
-    ("TPUCFN_FT_DIR", "the fault-tolerance heartbeat and drain", "Queue 1 B1"),
     ("TPUCFN_INPUT_ADDRS", "the disaggregated input service", "Queue 1 B2"),
-    ("TPUCFN_OBS_PORT", "the obs server, flight recorder and profiler",
-     "Queue 1 B3"),
     ("TPUCFN_COMPILE_CACHE_ADDRS", "the fleet compile cache", "Queue 1 B4"),
 )
 
@@ -69,9 +77,12 @@ def add_cluster_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--eval-every", type=int, default=0,
                    help="run validation over the held-out split every N steps")
     p.add_argument("--profile", action="store_true",
-                   help="refused: the profiler plane is not ported")
+                   help="trace the training loop with torch.profiler into "
+                        "RUN_DIR/profile/trace-<pid>.json (a Chrome trace)")
     p.add_argument("--profile-server", type=int, default=0, metavar="PORT",
-                   help="refused: the profiler plane is not ported")
+                   help="refused: XProf's live attach has no PyTorch "
+                        "counterpart; capture with POST /profile on the "
+                        "obs port instead")
     p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size")
     p.add_argument("--tensor", type=int, default=1, help="tensor-parallel axis size")
 
@@ -84,11 +95,12 @@ def refuse_unported_planes(args) -> None:
             raise SystemExit(
                 f"{var} is set: {plane} is not ported to tpucfn_torch yet "
                 f"(ROADMAP {item}); refusing to train without it")
-    if getattr(args, "profile", False) or getattr(args, "profile_server", 0):
+    if getattr(args, "profile_server", 0):
         raise SystemExit(
-            "--profile/--profile-server: the profiler plane is not ported to "
-            "tpucfn_torch yet (ROADMAP Queue 1 B3); refusing to train "
-            "without it")
+            "--profile-server: XProf's live profiler server has no PyTorch "
+            "counterpart in tpucfn_torch (ROADMAP Queue 1 B3, kept as a "
+            "gap); capture a live rank with POST /profile?seconds=S on its "
+            "obs port (TPUCFN_OBS_PORT) instead")
 
 
 def per_process_batch(args) -> int:
@@ -164,8 +176,13 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
     ``--eval-every N`` runs validation through the trainer's
     ``eval_step`` and logs ``eval_*`` metrics.  Returns the final state."""
     from tpucfn_torch.launch import process_index
-    from tpucfn_torch.obs.metrics import MetricLogger, StepTimer
+    from tpucfn_torch.obs.flight import FlightRecorder
+    from tpucfn_torch.obs.metrics import (MetricLogger, StepTimer,
+                                          register_device_gauges,
+                                          register_kernel_gauges)
+    from tpucfn_torch.obs.profiler import ProfileCapture
     from tpucfn_torch.obs.registry import set_default_labels
+    from tpucfn_torch.obs.server import start_obs_server
     from tpucfn_torch.obs.trace import Tracer
     from tpucfn_torch.parallel import shard_batch
     from tpucfn_torch.train.trainer import TrainerObs
@@ -192,35 +209,74 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
         if n:
             logger.log(step, {f"eval_{k}": v / n for k, v in sums.items()})
 
-    logger = tracer = None
+    logger = tracer = obs_srv = hb = None
     try:
         logger = MetricLogger(run_dir / "logs", stdout_every=args.log_every)
         registry = set_default_labels(host=str(host), role="trainer")
         tracer = Tracer(run_dir / "trace", host_id=host, role="trainer")
-        obs = TrainerObs(registry, tracer)
+        # The forensics plane: a bounded in-memory flight ring of
+        # per-phase and card-memory samples, dumped to run_dir/flight on
+        # SIGTERM/atexit and served live on /flightrecorder (where the
+        # gang coordinator fetches it at detect time); device_hbm_* and
+        # kernel_launches_* gauges on /metrics; an on-demand
+        # torch.profiler capture behind POST /profile.
+        flight = FlightRecorder(host_id=host, role="trainer")
+        flight.install_dump_handlers(run_dir / "flight")
+        register_device_gauges(registry, trainer.device)
+        register_kernel_gauges(registry)
+        profiler = ProfileCapture(run_dir / "profile", tracer=tracer)
+        obs = TrainerObs(registry, tracer, flight=flight)
+        obs_srv = start_obs_server(
+            registry, role="trainer", host_id=host,
+            health_fn=lambda: (True, {"step": obs.last_step.value}),
+            flight=flight, profiler=profiler, tracer=tracer)
+        # The fault-tolerance plane: when the gang coordinator assigned
+        # a heartbeat dir, a daemon thread beats liveness every interval
+        # and the loop keeps the step fresh (update_step) so the monitor
+        # can tell DEAD from STRAGGLER.
+        ft_dir = os.environ.get("TPUCFN_FT_DIR", "").strip()
+        if ft_dir:
+            from tpucfn_torch.ft import HeartbeatWriter
+
+            try:
+                hb_s = float(os.environ.get("TPUCFN_FT_HEARTBEAT_S", "") or 1.0)
+            except ValueError:
+                hb_s = 1.0
+            hb = HeartbeatWriter(ft_dir, host_id=host, interval_s=hb_s,
+                                 role="trainer").start()
         t_start = time.perf_counter()
         return _train_loop_body(
             trainer, ds, mesh, args, items_per_step, extra_axes, run_eval,
-            logger, timer, obs, t_start, run_dir, tracer)
+            logger, timer, obs, t_start, run_dir, tracer, hb, profiler)
     finally:
+        if hb is not None:
+            hb.stop()
         if logger is not None:
             logger.close()
         if tracer is not None:
             tracer.close()
+        if obs_srv is not None:
+            obs_srv.close()
 
 
 def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
-                     run_eval, logger, timer, obs, t_start, run_dir, tracer):
+                     run_eval, logger, timer, obs, t_start, run_dir, tracer,
+                     hb=None, profiler=None):
+    import contextlib
+
     import torch
 
     from tpucfn_torch.ckpt import CheckpointManager
     from tpucfn_torch.data import prefetch_to_device
-    from tpucfn_torch.ft import RESTORE_FAILED_RC
+    from tpucfn_torch.ft import RESTORE_FAILED_RC, drain_requested
     from tpucfn_torch.launch import process_count, process_index
     from tpucfn_torch.obs.goodput import device_peak_flops
+    from tpucfn_torch.obs.metrics import kernel_launch_counts
+    from tpucfn_torch.obs.profiler import profile_steps
     from tpucfn_torch.train.trainer import RestoreFailure
 
     device = trainer.device
+    ft_dir = os.environ.get("TPUCFN_FT_DIR", "").strip()
     with CheckpointManager(run_dir / "ckpt",
                            save_interval_steps=args.ckpt_every,
                            tracer=tracer) as ckpt:
@@ -245,45 +301,70 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
         stream = itertools.islice(ds.batches(None), step, None)
         batches = iter(prefetch_to_device(stream, device))
         _end = object()
-        while True:
-            # data_wait vs step vs ckpt: the three spans that say WHY a
-            # slow step was slow.  The wait is recorded only once the loop
-            # commits to a step, so the end-of-data drain never shows up
-            # as a phantom step's data wait.
-            t0_wait = time.monotonic()
-            batch = next(batches, _end)
-            t_wait = time.monotonic() - t0_wait
-            if batch is _end or step >= halt:
-                break
-            obs.record_data_wait(step + 1, t0_wait, t_wait)
-            with obs.step(step + 1):
-                state, metrics = trainer.step(state, batch)
-                step = state.step
-                _synchronize(device)  # honest step timing
-            timer.tick()
-            if t_start is not None:
-                # data staging + init/restore + kernel builds + first step
-                logger.log(step, {"time_to_first_step": round(
-                    time.perf_counter() - t_start, 2)})
-                t_start = None
-                # Live MFU: the step's analytic FLOPs over the card's peak
-                # (no peak entry, e.g. the CPU: the gauge stays unset).
-                kind = (torch.cuda.get_device_name(device)
-                        if device.type == "cuda" else device.type)
-                peak = device_peak_flops(kind)
-                if peak is not None:
-                    obs.set_model_flops(trainer.step_cost_flops(batch), peak)
-            if step % args.log_every == 0 or step == halt:
-                logger.log(step, {**{k: float(v) for k, v in metrics.items()},
-                                  "step_time": timer._last or 0.0,
-                                  "data_wait_time": t_wait})
-            if args.eval_every and step % args.eval_every == 0:
-                run_eval(state, step)
-            # CheckpointManager gates on save_interval_steps; record the
-            # span only when a save actually ran.
-            t0_ckpt = time.monotonic()
-            if ckpt.save(step, state):
-                obs.record_ckpt(step, t0_ckpt, time.monotonic() - t0_ckpt)
+        with contextlib.ExitStack() as planes:
+            planes.enter_context(profile_steps(run_dir / "profile",
+                                               enabled=args.profile))
+            if profiler is not None:
+                # POST /profile captures run on this thread, between steps
+                planes.enter_context(profiler.attach_loop())
+            while True:
+                # data_wait vs step vs ckpt: the three spans that say WHY a
+                # slow step was slow.  The wait is recorded only once the
+                # loop commits to a step, so the end-of-data drain never
+                # shows up as a phantom step's data wait.
+                t0_wait = time.monotonic()
+                batch = next(batches, _end)
+                t_wait = time.monotonic() - t0_wait
+                if batch is _end or step >= halt:
+                    break
+                obs.record_data_wait(step + 1, t0_wait, t_wait)
+                with obs.step(step + 1):
+                    state, metrics = trainer.step(state, batch)
+                    step = state.step
+                    _synchronize(device)  # honest step timing
+                if hb is not None:
+                    hb.update_step(step)  # step-lag signal for the monitor
+                if profiler is not None:
+                    profiler.step_boundary()
+                timer.tick()
+                if t_start is not None:
+                    # data staging + init/restore + kernel builds + first step
+                    logger.log(step, {"time_to_first_step": round(
+                        time.perf_counter() - t_start, 2)})
+                    t_start = None
+                    # Live MFU: the step's analytic FLOPs over the card's
+                    # peak (no peak entry, e.g. the CPU: the gauge stays
+                    # unset).
+                    kind = (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else device.type)
+                    peak = device_peak_flops(kind)
+                    if peak is not None:
+                        obs.set_model_flops(trainer.step_cost_flops(batch),
+                                            peak)
+                if step % args.log_every == 0 or step == halt:
+                    # with the flash kernels' launches so far (those
+                    # launched at all): which kernels the steps ran, read
+                    # exactly from the log, also of a rank later killed
+                    logger.log(step, {
+                        **{k: float(v) for k, v in metrics.items()},
+                        "step_time": timer._last or 0.0,
+                        "data_wait_time": t_wait,
+                        **{k: n for k, n in kernel_launch_counts().items()
+                           if n}})
+                if args.eval_every and step % args.eval_every == 0:
+                    run_eval(state, step)
+                # CheckpointManager gates on save_interval_steps; record
+                # the span only when a save actually ran.
+                t0_ckpt = time.monotonic()
+                if ckpt.save(step, state):
+                    obs.record_ckpt(step, t0_ckpt, time.monotonic() - t0_ckpt)
+                # Preemption drain: the coordinator asked the gang to stop
+                # cleanly at a step boundary; the final force-save below
+                # is the drain's zero-lost-work save.
+                if ft_dir and drain_requested(ft_dir, step):
+                    print(f"preemption drain: stopping cleanly at step "
+                          f"{step}", flush=True)
+                    break
         batches.close()  # stops the prefetch thread
         run_eval(state, state.step)
         t0_ckpt = time.monotonic()

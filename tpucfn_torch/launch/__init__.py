@@ -1,6 +1,12 @@
-"""Per-process runtime entry of the port."""
+"""The launcher and the per-process runtime entry of the port."""
 
-from tpucfn_torch.launch.launcher import (initialize_runtime, process_count,
-                                          process_index)
+from tpucfn_torch.launch.launcher import (Launcher, LocalTransport,
+                                          SSHTransport, Transport,
+                                          initialize_runtime,
+                                          main_argv_for_script,
+                                          process_count, process_index,
+                                          run_with_restarts)
 
-__all__ = ["initialize_runtime", "process_count", "process_index"]
+__all__ = ["Launcher", "LocalTransport", "SSHTransport", "Transport",
+           "initialize_runtime", "main_argv_for_script", "process_count",
+           "process_index", "run_with_restarts"]

@@ -7,8 +7,10 @@ definition (the port imports nothing of the JAX package); a drift test
 holds each equal to its original.  :class:`StepTimer` and
 :class:`MetricLogger` differ: the process index and the card count come
 from the process group (:mod:`tpucfn_torch.launch`), not from JAX, and
-the logger writes no TensorBoard events.  The device gauges are not
-ported (ROADMAP A9).
+the logger writes no TensorBoard events.  :func:`device_memory_stats`
+and :func:`register_device_gauges` read the card through ``torch.cuda``
+and keep the JAX package's gauge names; :func:`register_kernel_gauges`
+is the port's own: the flash kernels' launch counters on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -91,6 +93,105 @@ class ComputedGauge(Gauge):
                 f"gauge {self.name!r} is computed at read time; set() "
                 "writes would be silently shadowed — it is registered "
                 "via computed_gauge() elsewhere")
+
+
+def device_memory_stats(device=None) -> dict | None:
+    """The card's memory in the JAX package's ``memory_stats()`` keys
+    (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``), from
+    ``torch.cuda.memory_stats`` (the caching allocator's allocated bytes,
+    current and peak) and ``torch.cuda.mem_get_info`` (the card's total).
+    None for a CPU device, on a machine without a card, and for
+    ``device=None`` (the current card) in a process that has not
+    initialized CUDA, so a process training on the CPU never touches the
+    card; telemetry callers sample or skip."""
+    import torch
+
+    try:
+        if device is None:
+            if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+                return None
+            device = torch.device("cuda", torch.cuda.current_device())
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        stats = torch.cuda.memory_stats(device)
+        _, total = torch.cuda.mem_get_info(device)
+    except Exception:  # noqa: BLE001 — telemetry is best-effort
+        return None
+    return {"bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": total}
+
+
+# Exposition name -> device_memory_stats() key (the JAX package's names,
+# so readers of either package parse the same series).
+_HBM_GAUGES = (
+    ("device_hbm_used_bytes", "bytes_in_use",
+     "device memory in use right now"),
+    ("device_hbm_peak_bytes", "peak_bytes_in_use",
+     "high-water device memory since process start"),
+    ("device_hbm_limit_bytes", "bytes_limit",
+     "device memory capacity visible to the allocator"),
+)
+
+
+def register_device_gauges(registry, device=None, *,
+                           jit_sources=()) -> list[str]:
+    """``device_hbm_*`` computed gauges on ``registry`` reading
+    :func:`device_memory_stats` at scrape time.  Returns the registered
+    names; empty for a CPU device or without a card (``device=None``
+    means the current card, when CUDA is initialized).
+
+    ``jit_sources`` is accepted and ignored: the JAX package sums the
+    compiled-program counts of its jitted entry points into a
+    ``jit_cache_programs`` gauge, and the port compiles no programs (its
+    kernels are built once per process by ``nvcc``)."""
+    del jit_sources
+    stats = device_memory_stats(device)
+    if stats is None:
+        return []
+    names = []
+    for name, key, help_ in _HBM_GAUGES:
+        def _read(key=key, device=device) -> float:
+            return float((device_memory_stats(device) or {}).get(key, 0))
+
+        registry.computed_gauge(name, _read, help_)
+        names.append(name)
+    return names
+
+
+def register_kernel_gauges(registry) -> list[str]:
+    """``kernel_launches_<wrapper>[_<variant>]`` computed gauges: the
+    flash kernels' launch counters (``flash_attention.flash_fwd.
+    launches_by_variant`` and the backward wrappers'), read at scrape
+    time, so ``/metrics`` shows which kernels a live process runs."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    names = []
+    for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        for variant in f.launches_by_variant:
+            name = f"kernel_launches_{f.__name__}_{variant}"
+            registry.computed_gauge(
+                name, lambda f=f, v=variant: float(f.launches_by_variant[v]),
+                f"{f.__name__} launches on its {variant} kernel")
+            names.append(name)
+    name = "kernel_launches_flash_bwd_delta"
+    registry.computed_gauge(
+        name, lambda: float(fa.flash_bwd_delta.launches),
+        "flash_bwd_delta launches")
+    return names + [name]
+
+
+def kernel_launch_counts() -> dict[str, int]:
+    """The flash kernels' launch counters now, under the names of
+    :func:`register_kernel_gauges`' gauges."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    out = {f"kernel_launches_{f.__name__}_{variant}": n
+           for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+           for variant, n in f.launches_by_variant.items()}
+    out["kernel_launches_flash_bwd_delta"] = fa.flash_bwd_delta.launches
+    return out
 
 
 class Summary:
