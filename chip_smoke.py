@@ -70,7 +70,41 @@ Phases, each printed as one JSON line:
 6. ``serve_tiny_fp32``: the tiny preset in fp32; every K1 launch on
    ``mma``, and the engine's greedy tokens (kernel) equal ``generate``'s
    (plain attention).
-7. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
+7. ``serve_spec_llama3_1b``: speculative decoding at llama3-1b's full
+   width and depth (8 slots, ``cache_len`` 2048, the serving prompts, 96
+   new tokens), the reference's drill (``benches/serve_bench.py``) in
+   three legs: plain, a ``SpecDecoder`` with a self draft (k = 4) and one
+   with a divergent llama3-1b draft (seed 1; ``SpecKController(k=4,
+   window=4, probe_every=64)``).  Gates: every request completes, no KV
+   block leaks; K1 launches equal 16 x the calls of both engines, and by
+   variant equal ``fwd_variant`` at every call's shape (the width-5
+   verify on ``mma``, none on ``fma``); a verify's logits within 0.25 of
+   the plain path; each token where a spec leg first differs from plain
+   at a near-tie (top-2 gap < 0.25); the self draft at >= 1.5x plain's
+   tokens per target step; the divergent draft's controller off after
+   at most 12 proposing rounds, then probes only.  K1 at width 1, 5 and
+   9 over a verify's serving offsets, timed in turns; a profiled verify
+   pass beside a profiled decode step.  Then the drill in fp32 at the
+   tiny preset (a divergent nano draft): spec output equal to plain's,
+   worst-case TPOT <= 1.3x plain's (twenty passes each, in turns).
+8. ``serve_router_llama3_1b``: a ``ReplicaRouter`` over two llama3-1b
+   replicas sharing one set of weights (replica 0 a self-draft
+   ``SpecDecoder``); 12 requests of 64 tokens, replica 1 killed once
+   both replicas have emitted tokens, 4 more requests after.  Gates:
+   every request complete with 64 tokens, a failover or retry, replica 1
+   relaunched in probation and serving again, never two loops on one
+   engine, no KV block leaked, K1 launches by variant exact under the
+   two serve threads.  Printed: kill to the first retried token, the
+   replicas' state changes.
+9. ``serve_cli_llama3_1b``: ``python -m tpucfn_torch.cli serve --preset
+   llama3-1b --replicas 2 --spec-draft self --synthetic 16 --max-new 64
+   --obs-port 0 --trace-dir D`` under ``TPUCFN_FT_DIR``, in a
+   subprocess, sent SIGTERM once every request is in.  Gates: exit 0
+   with every request served within ``--drain-grace``; ``router_*`` and
+   ``serve_spec_*`` series on the live ``/metrics``; the heartbeats
+   advance; ``cli obs --run-dir`` on D's parent gives a request
+   breakdown with ``spec_propose_s`` and ``spec_verify_s``.
+10. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
    bf16 compute, full remat, chunked CE with z-loss, the example's
    clip + AdamW + warmup-cosine chain) takes 4 steps on a fixed
    ``synthetic_tokens`` batch of 2 x 2048 at the full width and depth of
@@ -81,10 +115,10 @@ Phases, each printed as one JSON line:
    against the plain attention path (loss within a tolerance, cosine
    >= 0.99), step time, tokens/s, peak memory, model flops over the
    bf16 peak, and a profiled step.
-8. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
+11. ``train_tiny_fp32``: the tiny preset in fp32, a few steps through the
    kernels against the plain path: losses equal to fp32 sum order; every
    K1, K2 and K3 launch on ``mma`` (none on ``fma``).
-9. ``example_llama3_1b``: the port's example
+12. ``example_llama3_1b``: the port's example
    (``tpucfn_torch/examples/llama3_8b_fsdp.py``) through its
    ``main(argv)``, run dirs in a temp dir (free space printed first,
    the dir deleted at the end): ``flash_autotune.tune`` at the example's
@@ -105,7 +139,7 @@ Phases, each printed as one JSON line:
    the run's segment ids: error, kernel, bound, plain and library times,
    rows beside each kernel's others in the kernels line).
 
-10. ``ft_llama3_1b``: the cluster entry point, in subprocesses:
+13. ``ft_llama3_1b``: the cluster entry point, in subprocesses:
    ``python -m tpucfn_torch.cli create-stack --accelerator h100-1`` on
    the fake control plane, then ``launch --ft --obs-port P --chaos`` runs
    the port's example (``python -m tpucfn_torch.examples.llama3_8b_fsdp
@@ -150,7 +184,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
-          "serve_tiny_fp32", "train_llama3_1b", "train_tiny_fp32",
+          "serve_tiny_fp32", "serve_spec_llama3_1b", "serve_router_llama3_1b",
+          "serve_cli_llama3_1b", "train_llama3_1b", "train_tiny_fp32",
           "example_llama3_1b", "ft_llama3_1b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
@@ -1003,20 +1038,45 @@ def phase_kernel_bwd(results):
 
 
 # ---- phases 5 and 6: serving -------------------------------------------------
-def _instrument(engine, counts):
-    """Count and time the engine's prefill and decode calls (each ends in a
-    device->host copy of the sampled tokens, so host time is complete)."""
-    for name in ("prefill_batch", "decode"):
-        inner = getattr(engine, name)
+class _Calls:
+    """Records every K1-launching call of an engine, from any thread: the
+    entry point, its query rows per batch row (the prefill bucket, 1 for
+    a decode step, the verify width) and its host time (each call ends in
+    a device-to-host copy of tokens, so the host time is complete); and
+    with ``offsets``, the cache index each verify starts from (its query
+    offsets; reading it synchronizes, so only one leg asks)."""
 
-        def timed(*a, _inner=inner, _name=name, **kw):
+    def __init__(self, engine, offsets=False):
+        import threading
+
+        self.engine, self.record_offsets = engine, offsets
+        self.lock = threading.Lock()
+        self.clear()
+        for name in ("prefill_batch", "decode", "verify"):
+            setattr(engine, name, self._wrap(name, getattr(engine, name)))
+
+    def clear(self):
+        self.calls, self.seconds, self.offsets = [], {}, []
+
+    def _wrap(self, name, inner):
+        def recorded(*a, **kw):
+            idx = (self.engine.cache.index.tolist()
+                   if name == "verify" and self.record_offsets else None)
             t0 = time.perf_counter()
-            out = _inner(*a, **kw)
-            counts[_name] += 1
-            counts[_name + "_s"] += time.perf_counter() - t0
+            out = inner(*a, **kw)
+            dt = time.perf_counter() - t0
+            sq = 1 if name == "decode" else a[1]
+            with self.lock:
+                self.calls.append((name, sq))
+                self.seconds[name] = self.seconds.get(name, 0.0) + dt
+                if idx is not None:
+                    self.offsets.append(idx)
             return out
 
-        setattr(engine, name, timed)
+        return recorded
+
+    def count(self, name):
+        return sum(1 for n, _ in self.calls if n == name)
 
 
 def _teacher_forced_logits(torch, model, prompt, out):
@@ -1065,8 +1125,19 @@ def _profile(torch, fn, steps, kernel=None):
                                / steps] for r in top]}
 
 
-def phase_serve_llama3_1b(results):
+def _serve_prompts(vocab):
+    """The serving phases' prompts: SERVE_LENGTHS, then two prompts of a
+    shared SERVE_SHARED-token prefix and their own tails."""
     import numpy as np
+
+    rs = np.random.RandomState(0)
+    shared = rs.randint(0, vocab, SERVE_SHARED).tolist()
+    prompts = [rs.randint(0, vocab, n).tolist() for n in SERVE_LENGTHS]
+    return prompts + [shared + rs.randint(0, vocab, n).tolist()
+                      for n in SERVE_TAILS]
+
+
+def phase_serve_llama3_1b(results):
     import torch
 
     from tpucfn_torch.kernels import flash_attention as fa
@@ -1081,11 +1152,7 @@ def phase_serve_llama3_1b(results):
     assert (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.ffn_dim, cfg.vocab_size) == \
         (2048, 16, 32, 8, 64, 8192, 128256), cfg
-    rs = np.random.RandomState(0)
-    shared = rs.randint(0, cfg.vocab_size, SERVE_SHARED).tolist()
-    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in SERVE_LENGTHS]
-    prompts += [shared + rs.randint(0, cfg.vocab_size, n).tolist()
-                for n in SERVE_TAILS]
+    prompts = _serve_prompts(cfg.vocab_size)
 
     # Warm-up (cuBLAS handles, the kernel library): one short request on a
     # throwaway Server over the same engine.
@@ -1093,9 +1160,7 @@ def phase_serve_llama3_1b(results):
     warm.submit(prompts[0], max_new_tokens=2)
     warm.run_until_idle()
 
-    counts = {"prefill_batch": 0, "decode": 0, "prefill_batch_s": 0.0,
-              "decode_s": 0.0}
-    _instrument(engine, counts)
+    rec = _Calls(engine)
     server = Server(engine, num_blocks=cache_len * 8 // 16, block_size=16,
                     prefix_cache=True, max_prefill_batch=4)
     _zero_launch_counts()
@@ -1104,7 +1169,10 @@ def phase_serve_llama3_1b(results):
     torch.cuda.synchronize()
     launches = fa.flash_fwd.launches
     by_variant = dict(fa.flash_fwd.launches_by_variant)
-    counts = dict(counts)  # the run's; later calls below are not counted
+    # the run's; later calls below are not counted
+    counts = {name: rec.count(name) for name in ("prefill_batch", "decode")}
+    counts.update({name + "_s": rec.seconds[name]
+                   for name in ("prefill_batch", "decode")})
     calls = counts["prefill_batch"] + counts["decode"]
     results["serve_launches"] = {"flash_fwd_sm90": by_variant["sm90"],
                                  "flash_fwd_decode_sm90": by_variant["decode"]}
@@ -1198,7 +1266,639 @@ def phase_serve_tiny_fp32(results):
             "k1_mma_launches": counts["k1_mma"]}
 
 
-# ---- phases 7 and 8: training ------------------------------------------------
+# ---- phases 7, 8 and 9: speculative decoding, the router, the serve CLI ----
+SPEC_MAX_NEW = 96
+ROUTER_MAX_NEW = 64
+# The divergent draft's controller (k = 4, window 4) halves k after every
+# window of 4 proposing rounds below the shrink threshold: 4, 2, 1, off.
+SPEC_OFF_AFTER_ROUNDS = 12
+SPEC_TPS_GAIN_MIN = 1.5     # the reference's gate (benches/serve_bench.py)
+SPEC_TPOT_RATIO_MAX = 1.3   # the reference's gate, worst-case draft
+SPEC_TINY_PASSES = 20      # passes of each tiny leg, in turns
+# A bf16 token flip (spec against plain) must sit at a near-tie: the plain
+# run's top-2 logit gap there under the logits tolerance.
+SPEC_NEAR_TIE = LOGITS_TOL_BF16
+
+
+def _expected_k1(recorders):
+    """K1 launches that the recorded calls imply: (total, by variant), a
+    call launching one per layer of its engine's model, in the variant
+    ``fwd_variant`` picks at its shape."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    want = dict.fromkeys(fa.flash_fwd.launches_by_variant, 0)
+    for rec in recorders:
+        cfg = rec.engine.model.cfg
+        for _, sq in rec.calls:
+            want[fa.fwd_variant(cfg.dtype, sq, cfg.n_heads,
+                                cfg.n_kv_heads)] += cfg.n_layers
+    return sum(want.values()), want
+
+
+def _k1_counts():
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    return fa.flash_fwd.launches, dict(fa.flash_fwd.launches_by_variant)
+
+
+class _LoopGuard:
+    """The most threads ever inside one engine's entry points at once (the
+    cache is updated in place: two serve loops on one engine corrupt it)."""
+
+    def __init__(self, engine):
+        import threading
+
+        self.lock = threading.Lock()
+        self.active = self.most = 0
+        for name in ("prefill_batch", "decode", "copy_prefix", "verify",
+                     "rollback"):
+            setattr(engine, name, self._wrap(getattr(engine, name)))
+
+    def _wrap(self, inner):
+        def guarded(*a, **kw):
+            with self.lock:
+                self.active += 1
+                self.most = max(self.most, self.active)
+            try:
+                return inner(*a, **kw)
+            finally:
+                with self.lock:
+                    self.active -= 1
+
+        return guarded
+
+
+def _spec_leg(torch, engine, prompts, max_new, server_kw, recorders,
+              fresh_controller=None):
+    """One leg of the reference's drill (``benches/serve_bench.py``): a
+    warm-up Server over the engine (each prompt bucket, the verify widths,
+    rollback), the controller reset after it (the timed pass pays the
+    whole shrink-to-off transient), then one timed pass over ``prompts``.
+    K1 counts and the call recorders cover the timed pass only."""
+    import gc
+
+    from tpucfn_torch.serve import Server
+    from tpucfn_torch.serve.scheduler import prefill_bucket
+
+    cache_len = engine.cache_len
+    warm = Server(engine, **server_kw)
+    for b in sorted({prefill_bucket(len(q), cache_len) for q in prompts}):
+        warm.submit([1] * min(b, cache_len - max_new),
+                    max_new_tokens=min(max_new, 24))
+    warm.run_until_idle()
+    if fresh_controller is not None:
+        engine.controller = fresh_controller()
+    ks = []
+    ctl = getattr(engine, "controller", None)
+    if ctl is not None:
+        inner = ctl.round_k
+
+        def round_k():
+            ks.append(inner())
+            return ks[-1]
+
+        ctl.round_k = round_k
+    for rec in recorders:
+        rec.clear()
+    _zero_launch_counts()
+    gc.collect()  # no earlier leg's garbage is collected inside this one
+    server = Server(engine, **server_kw)
+    t0 = time.perf_counter()
+    reqs = [server.submit(q, max_new_tokens=max_new) for q in prompts]
+    server.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_variant = _k1_counts()
+    snap = server.metrics.snapshot()
+    assert all(r.error is None for r in reqs), [r.error for r in reqs]
+    assert snap["completed"] == len(prompts), snap
+    assert server.kv.allocator.num_used == 0, server.kv.allocator.num_used
+    tpots = [(r.t_done - r.t_first_token) / (len(r.tokens) - 1)
+             for r in reqs]
+    decode_s = sum(rec.seconds.get("decode", 0.0)
+                   + rec.seconds.get("verify", 0.0) for rec in recorders)
+    return [r.result(timeout=0) for r in reqs], {
+        "wall_s": wall, "k1_launches": launches,
+        "k1_launches_by_variant": by_variant,
+        "calls": {name: sum(rec.count(name) for rec in recorders)
+                  for name in ("prefill_batch", "decode", "verify")},
+        # the target's host ms per call (recorders[0] is the target's)
+        "target_host_ms_per_call": {
+            name: t / recorders[0].count(name) * 1e3
+            for name, t in recorders[0].seconds.items()},
+        "tokens_per_target_step": snap["tokens_per_target_step"],
+        "acceptance_rate": snap["spec_acceptance_rate"],
+        "spec_rounds": snap["spec_rounds"],
+        "spec_proposed": snap["spec_proposed"],
+        "spec_accepted": snap["spec_accepted"],
+        "decode_rounds": snap["decode_rounds"],
+        "tpot_s_mean": sum(tpots) / len(tpots), "tpot_s_max": max(tpots),
+        "ttft_s": snap["ttft_s"],
+        "decode_tokens_per_s": snap["decode_tokens"] / decode_s,
+        "round_ks": ks}
+
+
+def _check_k1(leg, recorders):
+    """The leg's K1 launches equal n_layers x the calls of each engine,
+    and by variant what ``fwd_variant`` gives at each call's shape."""
+    total, want = _expected_k1(recorders)
+    assert leg["k1_launches"] == total, (leg["k1_launches"], total)
+    assert leg["k1_launches_by_variant"] == want, (
+        leg["k1_launches_by_variant"], want)
+    return want
+
+
+def _controller_off(ks):
+    """(proposing rounds before the controller first reads 0, proposing
+    rounds after it, rounds after it): the rounds after it propose only
+    on the controller's probes (k = 1, one in every probe_every)."""
+    first = ks.index(0)
+    after = ks[first:]
+    return (sum(1 for k in ks[:first] if k), [k for k in after if k],
+            len(after))
+
+
+def _verify_logits_err(torch, model, plain, prompt, run):
+    """Max |logit| difference between the kernel path and the plain path
+    over one verify-shaped pass: each model prefills ``prompt`` into a
+    fresh one-row cache, then scores ``run`` (W tokens) in one forward."""
+    outs = []
+    with torch.no_grad():
+        for m in (model, plain):
+            cache = m.init_cache(1)
+            m(torch.tensor([prompt], device="cuda"), cache=cache,
+              return_hidden=True)
+            h = m(torch.tensor([run], device="cuda"), cache=cache,
+                  return_hidden=True)
+            outs.append(m.logits(h[0]))
+    assert torch.isfinite(outs[0]).all()
+    return (outs[0] - outs[1]).abs().max().item()
+
+
+def _flips(torch, model, prompts, ref, out):
+    """Where a spec leg's tokens first differ from the plain leg's: the
+    plain run's teacher-forced top-2 logit gap at that position."""
+    gaps = []
+    for p, a, b in zip(prompts, ref, out):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        logits = _teacher_forced_logits(torch, model, p, a)
+        top = logits[j].topk(2).values
+        gaps.append({"position": j, "top2_gap": (top[0] - top[1]).item(),
+                     "plain_minus_spec": (logits[j, a[j]]
+                                          - logits[j, b[j]]).item()})
+    return gaps
+
+
+def _verify_at_serving_offsets(torch, timer, offsets):
+    """K1 at the verify pass's shapes (width 5 and 9 on ``mma``) and the
+    decode step's (width 1 on ``decode``), with the query offsets a verify
+    of the self-draft leg started from: one kernel case each, then the
+    three timed in turns on the same cache (1, 5, 9, 9, 5, 1)."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    cap = 2048
+    rows, shapes = [], {}
+    for sq in (1, 5, 9):
+        off = [min(o, cap - sq) for o in offsets]
+        label = ("decode" if sq == 1 else f"verify_sq{sq}") + \
+            "_serving_offsets"
+        rows.append(_one_case(torch, timer, label, 8, 32, 8, 64, sq, cap,
+                              torch.bfloat16, off))
+        shapes[sq] = off
+    g = torch.Generator("cuda").manual_seed(7)
+    k = torch.randn(8, cap, 8, 64, generator=g, device="cuda").bfloat16()
+    v = torch.randn(8, cap, 8, 64, generator=g, device="cuda").bfloat16()
+    qs = {sq: (torch.randn(8, sq, 32, 64, generator=g,
+                           device="cuda").bfloat16(),
+               torch.tensor(off, dtype=torch.int32, device="cuda"))
+          for sq, off in shapes.items()}
+    turns = {}
+    for sq in (1, 5, 9, 9, 5, 1):
+        q, off = qs[sq]
+        turns.setdefault(sq, []).append(timer(
+            lambda q=q, off=off: fa.flash_fwd(q, k, v, causal=True,
+                                              q_offset=off)))
+    return rows, {"offsets": offsets,
+                  "turns_ms": {f"sq{sq}": ms for sq, ms in turns.items()}}
+
+
+def phase_serve_spec_llama3_1b(results):
+    import gc
+
+    import numpy as np
+    import torch
+
+    from tpucfn_torch.models.llama import Llama
+    from tpucfn_torch.serve.engine import ServeEngine, demo_llama_engine
+    from tpucfn_torch.serve.spec import SpecDecoder, SpecKController
+
+    # the reference's drill first, on its own
+    tiny = _spec_tiny_fp32(torch, results)
+    cache_len, max_new = 2048, SPEC_MAX_NEW
+    cfg, engine = demo_llama_engine("llama3-1b", seed=0, max_batch=8,
+                                    cache_len=cache_len, prefill_width=4,
+                                    device="cuda")
+    assert (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.vocab_size) == (2048, 16, 32, 8, 128256), cfg
+    prompts = _serve_prompts(cfg.vocab_size)
+    server_kw = dict(num_blocks=cache_len * 8 // 16, block_size=16,
+                     prefix_cache=True, max_prefill_batch=4)
+
+    def eng(params):
+        return ServeEngine.from_llama(cfg, params, max_batch=8,
+                                      cache_len=cache_len, prefill_width=4,
+                                      device="cuda")
+
+    self_draft = eng(engine.params)       # the target's own weights
+    _, divergent = demo_llama_engine("llama3-1b", seed=1, max_batch=8,
+                                     cache_len=cache_len, prefill_width=4,
+                                     device="cuda")
+    rec_t, rec_s, rec_d = (_Calls(engine, offsets=True), _Calls(self_draft),
+                           _Calls(divergent))
+    ref, plain = _spec_leg(torch, engine, prompts, max_new, server_kw, [rec_t])
+    plain["k1_expected"] = _check_k1(plain, [rec_t])
+    spec_self = SpecDecoder(engine, self_draft, k=4)
+    out_self, hi = _spec_leg(torch, spec_self, prompts, max_new, server_kw,
+                             [rec_t, rec_s])
+    hi["k1_expected"] = _check_k1(hi, [rec_t, rec_s])
+    verify_offsets = list(rec_t.offsets)
+    rec_t.record_offsets = False
+    verify_calls = rec_t.count("verify")
+    verify_s = rec_t.seconds["verify"] / verify_calls
+    spec_div = SpecDecoder(
+        engine, divergent,
+        controller=SpecKController(k=4, window=4, probe_every=64))
+    out_div, lo = _spec_leg(
+        torch, spec_div, prompts, max_new, server_kw, [rec_t, rec_d],
+        fresh_controller=lambda: SpecKController(k=4, window=4,
+                                                 probe_every=64))
+    lo["k1_expected"] = _check_k1(lo, [rec_t, rec_d])
+    results["spec_launches"] = {
+        v: sum(leg["k1_launches_by_variant"][v] for leg in (plain, hi, lo))
+        for v in ("sm90", "decode", "mma")}
+    for leg in (hi, lo):
+        assert leg["k1_launches_by_variant"]["mma"] > 0, leg
+        assert leg["k1_launches_by_variant"]["fma"] == 0, leg
+
+    # the reference's gate: tokens per target step, self draft over plain
+    gain = hi["tokens_per_target_step"] / plain["tokens_per_target_step"]
+    assert gain >= SPEC_TPS_GAIN_MIN, gain
+    before, probes, off_rounds = _controller_off(lo["round_ks"])
+    assert before <= SPEC_OFF_AFTER_ROUNDS, lo["round_ks"]
+    assert all(k == 1 for k in probes) and \
+        len(probes) <= off_rounds // 64 + 1, lo["round_ks"]
+
+    # bf16: a flip against plain only at a near-tie
+    flips = {"self": _flips(torch, engine.model, prompts, ref, out_self),
+             "divergent": _flips(torch, engine.model, prompts, ref, out_div)}
+    worst_gap = max((f["top2_gap"] for fs in flips.values() for f in fs),
+                    default=0.0)
+    assert worst_gap < SPEC_NEAR_TIE, flips
+    plain_model = Llama.from_state_dict(cfg, engine.model.state_dict(),
+                                        decode=True, device="cuda")
+    verify_err = max(_verify_logits_err(torch, engine.model, plain_model, p,
+                                        ref[i][:5])
+                     for i, p in enumerate(prompts))
+    assert verify_err <= LOGITS_TOL_BF16, verify_err
+
+    timer = Timer(torch)
+    mid = verify_offsets[len(verify_offsets) // 2]
+    rows, turns = _verify_at_serving_offsets(torch, timer, mid)
+    assert all(r["ok"] for r in rows), rows
+    assert [r["variant"] for r in rows] == ["decode", "mma", "mma"], rows
+    results["kernel_rows"] = results.get("kernel_rows", []) + rows
+    for r in rows:
+        emit({"kernel_case": r})
+    profile_verify = _profile(
+        torch, lambda: engine.verify({s: [1] * 5 for s in range(8)}, 5), 6,
+        kernel="flash_fwd_mma")
+    profile_decode = _profile(
+        torch, lambda: engine.decode({s: 1 for s in range(8)}), 6,
+        kernel="flash_fwd_decode")
+    out = {"max_new": max_new, "requests": len(prompts),
+           "legs": {"plain": plain, "self": hi, "divergent": lo},
+           "tokens_per_target_step_gain": gain,
+           "divergent_tpot_ratio": lo["tpot_s_mean"] / plain["tpot_s_mean"],
+           "self_tpot_ratio": hi["tpot_s_mean"] / plain["tpot_s_mean"],
+           "divergent_controller": {"proposing_rounds_before_off": before,
+                                    "probes": len(probes),
+                                    "rounds_off": off_rounds},
+           "flips": {k: len(v) for k, v in flips.items()},
+           "flip_gaps": flips, "verify_logits_max_abs_err": verify_err,
+           "logits_tol": LOGITS_TOL_BF16,
+           "verify_calls": verify_calls,
+           "verify_host_ms_per_call": verify_s * 1e3,
+           "verify_offsets_timed": mid, "k1_turns": turns,
+           "profile_verify_w5": profile_verify,
+           "profile_decode_step": profile_decode,
+           "tiny_fp32": tiny}
+    del engine, self_draft, divergent, spec_self, spec_div, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_tiny_fp32(torch, results):
+    """The reference's drill as it runs (``benches/serve_bench.py
+    --spec``): tiny in fp32, a self draft and a divergent nano draft
+    (seed 1, controller k 4, window 4, probes every 64), 8 prompts of
+    8-96 tokens, 96 new, no prefix cache.  Spec output equals plain's
+    token for token; the self draft reaches 1.5x the tokens per target
+    step; the worst-case draft's TPOT is within 1.3x plain's (the mean
+    of twenty passes each, in turns)."""
+    import numpy as np
+
+    from tpucfn_torch.serve.engine import ServeEngine, demo_llama_engine
+    from tpucfn_torch.serve.spec import SpecDecoder, SpecKController
+
+    cache_len, max_new = 256, SPEC_MAX_NEW
+    cfg, target = demo_llama_engine("tiny", seed=0, max_batch=8,
+                                    cache_len=cache_len, prefill_width=4,
+                                    device="cuda")
+    assert cfg.dtype == torch.float32
+    draft = ServeEngine.from_llama(cfg, target.params, max_batch=8,
+                                   cache_len=cache_len, prefill_width=4,
+                                   device="cuda")
+    _, nano = demo_llama_engine("nano", seed=1, max_batch=8,
+                                cache_len=cache_len, prefill_width=4,
+                                device="cuda")
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, cfg.vocab_size, rs.randint(8, 97)).tolist()
+               for _ in range(8)]
+    server_kw = dict(num_blocks=512, block_size=16, prefix_cache=False,
+                     max_prefill_batch=4)
+    recs = [_Calls(e) for e in (target, draft, nano)]
+
+    def leg(engine, recorders, **kw):
+        out, row = _spec_leg(torch, engine, prompts, max_new, server_kw,
+                             recorders, **kw)
+        want = _check_k1(row, recorders)
+        assert want["mma"] == row["k1_launches"], want  # fp32: all on mma
+        assert out == ref, "spec output differs from plain"
+        row.pop("round_ks")
+        return row
+
+    # Plain and the worst-case draft in turns, SPEC_TINY_PASSES each
+    # (plain, nano, nano, plain, plain, nano, ...): on this host-bound
+    # step one pass's TPOT varies by up to ~30% within a run.
+    fresh = lambda: SpecKController(k=4, window=4, probe_every=64)  # noqa: E731
+    lo_spec = SpecDecoder(target, nano, controller=fresh())
+    ref, plain = _spec_leg(torch, target, prompts, max_new, server_kw,
+                           recs[:1])
+    plain.pop("round_ks")
+    _check_k1(plain, recs[:1])
+    turns = [("plain", plain)]
+    for name in (("divergent_nano", "divergent_nano", "plain", "plain")
+                 * (SPEC_TINY_PASSES // 2))[:-1]:
+        turns.append((name, leg(target, recs[:1]) if name == "plain" else
+                      leg(lo_spec, [recs[0], recs[2]],
+                          fresh_controller=fresh)))
+    hi = leg(SpecDecoder(target, draft, k=4), recs[:2])
+    tpot = {k: [r["tpot_s_mean"] for n, r in turns if n == k]
+            for k in ("plain", "divergent_nano")}
+    gain = hi["tokens_per_target_step"] / plain["tokens_per_target_step"]
+    ratio = sum(tpot["divergent_nano"]) / sum(tpot["plain"])
+    assert gain >= SPEC_TPS_GAIN_MIN, gain
+    assert ratio <= SPEC_TPOT_RATIO_MAX, (ratio, tpot)
+    results["spec_tiny_launches"] = sum(
+        r["k1_launches_by_variant"]["mma"] for _, r in turns) + \
+        hi["k1_launches_by_variant"]["mma"]
+    return {"identical": True, "tokens_per_target_step_gain": gain,
+            "worst_case_tpot_ratio": ratio, "tpot_s_in_turns": tpot,
+            "legs": {"plain": plain, "self": hi,
+                     "divergent_nano": turns[1][1]}}
+
+
+def _router_prompts(vocab, n=16):
+    import numpy as np
+
+    rs = np.random.RandomState(2)
+    return [rs.randint(0, vocab, rs.randint(16, 513)).tolist()
+            for _ in range(n)]
+
+
+def phase_serve_router_llama3_1b(results):
+    import gc
+    import tempfile
+    import threading
+
+    import torch
+
+    from tpucfn_torch.obs.registry import MetricRegistry
+    from tpucfn_torch.serve import ReplicaRouter, Server
+    from tpucfn_torch.serve.engine import ServeEngine, demo_llama_engine
+    from tpucfn_torch.serve.spec import SpecDecoder
+
+    cache_len = 2048
+    cfg, e0 = demo_llama_engine("llama3-1b", seed=0, max_batch=8,
+                                cache_len=cache_len, prefill_width=4,
+                                device="cuda")
+
+    def eng():
+        return ServeEngine.from_llama(cfg, e0.params, max_batch=8,
+                                      cache_len=cache_len, prefill_width=4,
+                                      device="cuda")
+
+    d0, e1 = eng(), eng()
+    engines = {"target0": e0, "draft0": d0, "replica1": e1}
+    guards = {k: _LoopGuard(e) for k, e in engines.items()}
+    recs = [_Calls(e) for e in engines.values()]
+    # replica 0 speculative (as --spec-replicas 0); built outside the
+    # factory, so a relaunch reuses the engine pair
+    replica_engines = [SpecDecoder(e0, d0, k=4), e1]
+    servers = {0: [], 1: []}
+
+    def factory(i):
+        srv = Server(replica_engines[i], num_blocks=cache_len * 8 // 16,
+                     block_size=16, prefix_cache=True, max_prefill_batch=4)
+        servers[i].append(srv)
+        return srv
+
+    root = Path(tempfile.mkdtemp(prefix="serve_router_llama3_1b-"))
+    router = ReplicaRouter(factory, 2, registry=MetricRegistry(),
+                           hedge_ms=0.0, ft_dir=root / "serve-ft")
+    states, stop = [], threading.Event()
+
+    def watch():  # the replicas' state changes, on the router's clock
+        last = None
+        while not stop.is_set():
+            now = router.clock()
+            cur = [rep.state(now) for rep in router.replicas]
+            if cur != last:
+                states.append((now, cur))
+                last = cur
+            time.sleep(0.002)
+
+    prompts = _router_prompts(cfg.vocab_size)
+    _zero_launch_counts()
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    router.start()
+    try:
+        first = [router.submit(p, max_new_tokens=ROUTER_MAX_NEW)
+                 for p in prompts[:12]]
+        t_end = time.monotonic() + 300
+        while not all(servers[i][0].metrics.snapshot()["generated_tokens"]
+                      for i in (0, 1)):
+            assert time.monotonic() < t_end, "no tokens on both replicas"
+            time.sleep(0.005)
+        t_kill = router.clock()
+        router.kill_replica(1)
+        kill_call_s = router.clock() - t_kill
+        later = [router.submit(p, max_new_tokens=ROUTER_MAX_NEW)
+                 for p in prompts[12:]]
+        for r in first + later:
+            assert r.done.wait(300), "request never completed"
+    finally:
+        router.stop()
+        stop.set()
+        watcher.join(5)
+    torch.cuda.synchronize()
+    launches, by_variant = _k1_counts()
+    snap = router.snapshot()
+    reqs = first + later
+    assert all(r.error is None and len(r.tokens) == ROUTER_MAX_NEW
+               for r in reqs), [(r.status, r.error) for r in reqs]
+    assert snap["completed"] == len(reqs), snap
+    assert snap["failovers"] >= 1 or snap["retries"] >= 1, snap
+    assert len(servers[1]) == 2, "replica 1 was not relaunched"
+    assert any(s[1][1] == "half_open" for s in states if s[0] > t_kill), \
+        states
+    served_after = servers[1][1].metrics.snapshot()["completed"]
+    assert served_after >= 1, served_after
+    most = {k: g.most for k, g in guards.items()}
+    assert all(m == 1 for m in most.values()), most
+    leaked = {f"{i}.{j}": s.kv.allocator.num_used
+              for i in (0, 1) for j, s in enumerate(servers[i])
+              if s.failed is None}
+    assert not any(leaked.values()), leaked
+    total, want = _expected_k1(recs)
+    assert launches == total, (launches, total)
+    assert by_variant == want, (by_variant, want)
+    assert by_variant["mma"] > 0 and by_variant["fma"] == 0, by_variant
+    results["router_launches"] = {v: by_variant[v]
+                                  for v in ("sm90", "decode", "mma")}
+    retried = [r for r in reqs if r.retries > 0]
+    first_retried = min((r.attempts[-1].sreq.t_first_token for r in retried),
+                        default=None)
+    out = {"requests": len(reqs), "completed": snap["completed"],
+           "tokens_each": ROUTER_MAX_NEW,
+           "router": {k: snap[k] for k in ("retries", "failovers", "hedges",
+                                           "failed", "latency_s")},
+           "retried_requests": len(retried),
+           "kill_call_s": kill_call_s,
+           "kill_to_first_retried_token_s": (
+               first_retried - t_kill if first_retried is not None else None),
+           "replica1_served_after_relaunch": served_after,
+           "state_changes": [[round(t - t_kill, 4), s] for t, s in states],
+           "most_loops_on_one_engine": most,
+           "kv_blocks_used_after": leaked,
+           "k1_launches": launches, "k1_launches_by_variant": by_variant,
+           "events": [json.loads(line)["kind"] for line in
+                      (root / "serve-ft" / "events.jsonl").read_text()
+                      .splitlines()]}
+    del e0, d0, e1, engines, replica_engines, servers, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_cli_llama3_1b(results):
+    """``python -m tpucfn_torch.cli serve`` at llama3-1b, 2 replicas, a
+    self draft on each, under ``TPUCFN_FT_DIR``, stopped by SIGTERM once
+    every request is in; then ``cli obs`` over its run dir."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    root = Path(tempfile.mkdtemp(prefix="serve_cli_llama3_1b-"))
+    run, ft = root / "run", root / "ft"
+    env = {**os.environ, "TPUCFN_FT_DIR": str(ft),
+           "TPUCFN_FT_HEARTBEAT_S": "0.5"}
+    for k in ("TPUCFN_OBS_PORT", "TPUCFN_COMPILE_CACHE_ADDRS"):
+        env.pop(k, None)
+    n, drain_grace = 16, 30.0
+    cmd = [sys.executable, "-m", "tpucfn_torch.cli", "serve", "--preset",
+           "llama3-1b", "--replicas", "2", "--spec-draft", "self",
+           "--cache-len", "2048", "--synthetic", str(n), "--max-new",
+           str(ROUTER_MAX_NEW), "--obs-port", "0", "--trace-dir",
+           str(run / "trace"), "--drain-grace", str(drain_grace)]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    err_lines, url = [], []
+    got_url = threading.Event()
+
+    def read_err():
+        for line in proc.stderr:
+            err_lines.append(line)
+            if line.startswith("obs endpoint: "):
+                url.append(line.split(": ", 1)[1].strip())
+                got_url.set()
+
+    reader = threading.Thread(target=read_err, daemon=True)
+    reader.start()
+    try:
+        assert got_url.wait(300), "".join(err_lines)
+        metrics = {}
+        while metrics.get("router_requests_total") != float(n):
+            assert proc.poll() is None, "".join(err_lines)
+            assert time.monotonic() - t0 < 600, metrics
+            time.sleep(0.02)
+            try:
+                metrics = _prometheus(_http(url[0])[1])
+            except OSError:
+                metrics = {}
+        live = sorted(k for k in metrics
+                      if k.startswith(("router_", "serve_spec_")))
+        hb = ft / "hb-host000.jsonl"
+        beat0 = json.loads(hb.read_text().splitlines()[-1])
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        out = proc.stdout.read()  # to the exit (stderr goes to `reader`)
+        proc.wait(timeout=60)
+        drain_s = time.monotonic() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+    err = "".join(err_lines)
+    assert proc.returncode == 0, err[-4000:]
+    assert "SIGTERM: draining" in err, err[-4000:]
+    assert f"served {n}/{n}" in err, err[-4000:]
+    assert drain_s <= drain_grace, drain_s
+    assert any(k.startswith("router_") for k in live) and \
+        {"serve_spec_acceptance_rate", "serve_spec_k"} <= set(live), live
+    beats = [json.loads(line) for line in hb.read_text().splitlines()]
+    assert beats[-1]["seq"] > beat0["seq"], (beat0, beats[-1])
+    snap = json.loads(out.strip().splitlines()[-1])["router"]
+    assert snap["completed"] == n and snap["failed"] == 0, snap
+    obs = subprocess.run(
+        [sys.executable, "-m", "tpucfn_torch.cli", "obs", "--run-dir",
+         str(run), "--json"], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert obs.returncode == 0, obs.stderr[-4000:]
+    rows = json.loads(obs.stdout)["requests"]
+    assert len(rows) == n and all(r["outcome"] == "ok" for r in rows), rows
+    spec_rows = [r for r in rows if r["spec_propose_s"] > 0]
+    assert spec_rows and all(r["spec_verify_s"] > 0 for r in spec_rows), \
+        rows
+    shutil.rmtree(root, ignore_errors=True)
+    return {"rc": proc.returncode, "requests": n,
+            "drain_s": drain_s, "drain_grace_s": drain_grace,
+            "run_s": time.monotonic() - t0,
+            "live_series": live, "heartbeats": len(beats),
+            "router": {k: snap[k] for k in ("completed", "retries",
+                                            "failovers", "latency_s")},
+            "obs_rows": len(rows), "obs_rows_with_spec": len(spec_rows)}
+
+
+# ---- phases 10 and 11: training ---------------------------------------------
 # Loss of the kernel path against the plain attention path at the same
 # params and batch (llama3-1b, bf16): the plain forward rounds P to bf16
 # before PV (as the JAX dense op does) and K1 keeps it fp32, carried
@@ -1399,7 +2099,7 @@ def phase_train_tiny_fp32(results):
             "kernel_launches": k_counts}
 
 
-# ---- phase 9 ---------------------------------------------------------------
+# ---- phase 12 --------------------------------------------------------------
 EXAMPLE_LOSS_REL_TOL = 1e-3  # a relaunch's losses against an uninterrupted run
 
 
@@ -1720,7 +2420,7 @@ def phase_example_llama3_1b(results):
     return out
 
 
-# ---- phase 10 --------------------------------------------------------------
+# ---- phase 13 --------------------------------------------------------------
 # The drill: 34 steps at full width and 2 layers (fresh batches, as the
 # example's resume run), a save at step 1 (the directory's first) and
 # every 20.  A kill at fleet step 21 lands with step 20's write open
@@ -2249,6 +2949,7 @@ def _kernels_line(results):
     ft = results["ft_launches"]
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
+    spec, router = results["spec_launches"], results["router_launches"]
 
     def entry(name, source, replaces, paths, rows, at, key=None):
         pick = (lambda r: r) if key is None else (lambda r: r[key])
@@ -2285,21 +2986,30 @@ def _kernels_line(results):
     kernels = [
         entry("flash_fwd_sm90", "flash_fwd_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_sm90"],
+               "serve_spec_llama3_1b": spec["sm90"],
+               "serve_router_llama3_1b": router["sm90"],
                "train_llama3_1b": train["k1_sm90"],
                "example_llama3_1b": example["k1_sm90"],
                "example_llama3_1b_packed": packed["k1_sm90"],
                "ft_llama3_1b": ft["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
-              {"serve_llama3_1b": serve["flash_fwd_decode_sm90"]},
+              {"serve_llama3_1b": serve["flash_fwd_decode_sm90"],
+               "serve_spec_llama3_1b": spec["decode"],
+               "serve_router_llama3_1b": router["decode"]},
               of(fwd, "decode"), "decode_llama3_1b"),
+        # the verify pass of speculative decoding (widths 5 and 9: 20
+        # and 36 packed rows), and every fp32 call
         entry("flash_fwd_mma_sm90", "flash_fwd_mma_sm90.cu", 98,
-              {"serve_tiny_fp32": serve_tiny["flash_fwd_mma"],
+              {"serve_spec_llama3_1b": spec["mma"],
+               "serve_router_llama3_1b": router["mma"],
+               "serve_spec_tiny_fp32": results["spec_tiny_launches"],
+               "serve_tiny_fp32": serve_tiny["flash_fwd_mma"],
                "train_tiny_fp32": tiny["k1_mma"]},
-              of(fwd, "mma"), "tiny_fp32_d16_gqa2"),
+              of(fwd, "mma"), "verify_sq5_serving_offsets"),
         # on no path: timed beside mma in turns
         entry("flash_fwd_fma", "flash_fwd.cu", 98, {},
-              fma_beside(of(fwd, "mma")), "tiny_fp32_d16_gqa2"),
+              fma_beside(of(fwd, "mma")), "verify_sq5_serving_offsets"),
         entry("flash_bwd_delta", "flash_bwd.cu", 393,
               {"train_llama3_1b": train["delta"],
                "train_tiny_fp32": tiny["delta"],
@@ -2370,6 +3080,10 @@ def main(argv=None) -> int:
            "kernel_bwd": lambda: phase_kernel_bwd(results),
            "serve_llama3_1b": lambda: phase_serve_llama3_1b(results),
            "serve_tiny_fp32": lambda: phase_serve_tiny_fp32(results),
+           "serve_spec_llama3_1b": lambda: phase_serve_spec_llama3_1b(results),
+           "serve_router_llama3_1b":
+               lambda: phase_serve_router_llama3_1b(results),
+           "serve_cli_llama3_1b": lambda: phase_serve_cli_llama3_1b(results),
            "train_llama3_1b": lambda: phase_train_llama3_1b(results),
            "train_tiny_fp32": lambda: phase_train_tiny_fp32(results),
            "example_llama3_1b": lambda: phase_example_llama3_1b(results),

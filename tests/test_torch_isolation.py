@@ -34,7 +34,10 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("provision/control_plane.py", "provision/control_plane.py"),
             ("provision/provisioner.py", "provision/provisioner.py"),
             ("provision/policy.py", "provision/policy.py"),
-            ("obs/server.py", "obs/server.py")]
+            ("obs/server.py", "obs/server.py"),
+            ("serve/spec.py", "serve/spec.py"),
+            ("serve/router.py", "serve/router.py"),
+            ("obs/aggregate.py", "obs/aggregate.py")]
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)
@@ -96,7 +99,8 @@ COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
                ("obs/timeline.py", "obs/timeline.py", "ClockProbe"),
                ("obs/timeline.py", "obs/timeline.py", "probe_clock"),
                ("train/trainer.py", "train/trainer.py", "RestoreFailure"),
-               ("train/trainer.py", "train/trainer.py", "TrainerObs")]
+               ("train/trainer.py", "train/trainer.py", "TrainerObs"),
+               ("cli.py", "cli/main.py", "_slo_objective")]
 # (copy, original, class, methods) where the port rewrites part of a
 # class: the listed methods are copies.  ClusterSpec's TPU defaults,
 # FlightRecorder's device probe (``sample_device``) and ProfileCapture's

@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -388,6 +389,19 @@ def _segments_on(device, q_seg, kv_seg):
                  for s in (q_seg, kv_seg))
 
 
+# The serving router launches from one thread per replica: a counter's
+# read-modify-write would lose counts between them.
+_count_lock = threading.Lock()
+
+
+def _count(wrapper, variant: str | None = None) -> None:
+    """Count one launch of ``wrapper``'s kernel (and of ``variant``)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if variant is not None:
+            wrapper.launches_by_variant[variant] += 1
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -441,8 +455,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk,
                  stream)
-    flash_fwd.launches += 1
-    flash_fwd.launches_by_variant[variant] += 1
+    _count(flash_fwd, variant)
     return o, lse
 
 
@@ -589,7 +602,7 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, h, d,
         int(o.dtype == torch.bfloat16), o.device.index,
         torch.cuda.current_stream(o.device).cuda_stream), "flash_bwd_delta")
-    flash_bwd_delta.launches += 1
+    _count(flash_bwd_delta)
     return delta
 
 
@@ -652,8 +665,7 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
         fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
         _raise_on(lib, fn(*args, int(q.dtype == torch.bfloat16),
                           q.device.index, stream), name)
-    wrapper.launches += 1
-    wrapper.launches_by_variant[variant] += 1
+    _count(wrapper, variant)
     return outs
 
 

@@ -181,6 +181,7 @@ class Llama(nn.Module):
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
                                  dtype=torch.float32, device=device)
+        self._rope_tables: dict = {}  # device -> (cos, sin), made once
 
     @classmethod
     def from_state_dict(cls, cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
@@ -206,6 +207,18 @@ class Llama(nn.Module):
                    device=None) -> DecodeCache:
         return DecodeCache.zeros(self.cfg, batch, capacity or self.cfg.max_seq,
                                  device or self.lm_head.weight.device)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` as ``jnp.take`` gives them to
+        the JAX package's ``nn.Embed``: a negative id counts from the end,
+        an id outside [-vocab, vocab) gets a row of NaN.  A draft whose
+        vocabulary is smaller than its target's sees such ids; its
+        proposals are then garbage that verification rejects, where
+        ``nn.Embedding`` would stop the card on a device-side assert."""
+        v = self.cfg.vocab_size
+        x = self.embed_tokens(tokens.remainder(v))
+        fits = (tokens >= -v) & (tokens < v)
+        return torch.where(fits[..., None], x, torch.nan)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """The fp32 LM head over final-norm hidden states."""
@@ -250,9 +263,11 @@ class Llama(nn.Module):
             from tpucfn_torch.kernels.auto import auto_attention_static_zero
 
             attention_fn = auto_attention_static_zero
-        x = self.embed_tokens(tokens).to(cfg.dtype)
-        rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=x.device)
+        x = self._embed(tokens).to(cfg.dtype)
+        rope = self._rope_tables.get(x.device)
+        if rope is None:
+            rope = self._rope_tables[x.device] = rope_frequencies(
+                cfg.head_dim, cfg.max_seq, cfg.rope_theta, device=x.device)
         remat = (not self.decode and remat_policy(cfg.remat)
                  and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):

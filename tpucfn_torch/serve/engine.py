@@ -28,12 +28,32 @@ Three entry points, as in the JAX engine:
   ``index`` set to the shared prefix length.  Bytes past the prefix are
   stale backer state, dead by the same write-before-read argument.
 
+Two more entry points serve speculative decoding
+(:mod:`tpucfn_torch.serve.spec`):
+
+* ``verify``: score ``width`` token positions for EVERY slot in one
+  forward over ``(max_batch, width)`` tokens — each slot's last emitted
+  token followed by ``width - 1`` draft proposals.  Position 0 is
+  sampled exactly as ``decode`` samples (same ``_sample``, same temps,
+  same generator); positions 1+ take the argmax.  The pass is a peek:
+  K/V rows gain the ``width`` new entries, but the whole ``(max_batch,)``
+  index, vacant slots' included, is put back after the pass (a free
+  slot's residue backs prefix-cache hits, and an index that crept up by
+  ``width`` a round would clamp later writes back INTO that residue).
+  A lane with ``index + width > cache_len`` comes back NaN-poisoned,
+  which is harmless only in lanes that are never read.
+* ``rollback``: set the listed slots' index to given lengths (masked:
+  every other slot keeps its own).  K/V past the new index is dead by
+  the write-before-read argument the bucket-pad rewind rests on.
+
 The cache is updated in place (JAX donates the buffer to the same
 effect).  Sampling temperatures live in a device-resident
-``(max_batch,)`` tensor written only by prefill.  Greedy decode here is
+``(max_batch,)`` tensor written only by prefill, with a host mirror: a
+step in which no slot samples is the argmax alone.  Greedy decode here is
 token-identical to :func:`tpucfn_torch.models.generate.generate` wherever
-the two attention paths round alike (fp32).  Speculative decoding
-(``verify``/``rollback``) is not ported yet.
+the two attention paths round alike (fp32).  ``compile_counts`` counts
+the distinct shapes each entry point has run: what the JAX engine
+compiles once each, and what CUDA graphs of these steps would capture.
 """
 
 from __future__ import annotations
@@ -49,10 +69,15 @@ from tpucfn_torch.models.generate import categorical
 
 
 def _sample(logits: torch.Tensor, temps: torch.Tensor,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            sampling: bool = True) -> torch.Tensor:
     """(N, V) fp32 logits -> (N,) int tokens.  temp<=0 is greedy;
-    otherwise categorical over logits/temp."""
+    otherwise categorical over logits/temp.  ``sampling=False`` (no
+    temp > 0, known on the host) takes the argmax alone and draws
+    nothing from ``generator``."""
     greedy = logits.argmax(dim=-1)
+    if not sampling:
+        return greedy
     sampled = categorical(logits / temps.clamp_min(1e-6)[:, None], generator)
     return torch.where(temps > 0.0, sampled, greedy)
 
@@ -78,6 +103,11 @@ class ServeEngine:
         self.cache = model.init_cache(max_batch, cache_len, self.device)
         self._temps = torch.zeros((max_batch,), dtype=torch.float32,
                                   device=self.device)
+        self._host_temps = np.zeros((max_batch,), np.float32)  # its mirror
+        # Distinct shapes run per entry point (``compile_counts``); the
+        # speculative entries appear once they have run.
+        self._shapes: dict[str, set] = {"prefill": set(), "decode": set(),
+                                        "copy_prefix": set()}
 
     @classmethod
     def from_llama(cls, cfg, params, *, max_batch: int = 8,
@@ -103,7 +133,23 @@ class ServeEngine:
                    device=device)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """``a`` on the device.  On the card the copy is staged in pinned
+        memory and queued behind the stream's work: a copy from pageable
+        memory waits for the stream, once per host array of every step."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _sampling(self) -> bool:
+        """Whether any slot samples (temp > 0); else a step is argmax."""
+        return bool((self._host_temps > 0).any())
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """The weights (the model's state dict: the engine's own tensors,
+        not copies), e.g. for a draft engine over the same weights."""
+        return self.model.state_dict()
 
     # -- host API (the scheduler loop calls these) -------------------------
     def prefill(self, slot: int, prefix: list[int], bucket: int,
@@ -161,11 +207,14 @@ class ServeEngine:
         rows.index.copy_(true_t)  # rewind past the bucket pad
         last = hidden[torch.arange(k, device=self.device),
                       self._tensor((true_lens - starts - 1).astype(np.int64))]
-        toks_out = _sample(self.model.logits(last), new_temps, self.generator)
+        toks_out = _sample(self.model.logits(last), new_temps, self.generator,
+                           sampling=bool((temps > 0).any()))
         # Pad lanes repeat lane 0: their slots are duplicates, but their
         # rows are identical, so the scatter order does not matter.
         self.cache.put_rows(slots_t, rows)
         self._temps.index_copy_(0, slots_t, new_temps)
+        self._host_temps[slot_arr] = temps
+        self._shapes["prefill"].add(bucket)
         toks_out = toks_out.cpu().numpy()
         return {slot: int(toks_out[i]) for i, slot in enumerate(slots)}
 
@@ -188,6 +237,7 @@ class ServeEngine:
         for t in self.cache.keys + self.cache.values:
             t[dst_slot].copy_(t[src_slot])
         self.cache.index[dst_slot] = n_tokens
+        self._shapes["copy_prefix"].add(())
 
     @torch.no_grad()
     def decode(self, tokens_by_slot: dict[int, int]) -> dict[int, int]:
@@ -200,8 +250,67 @@ class ServeEngine:
         hidden = self.model(self._tensor(toks), cache=self.cache,
                             return_hidden=True)
         nxt = _sample(self.model.logits(hidden[:, -1]), self._temps,
-                      self.generator).cpu().numpy()
+                      self.generator, self._sampling()).cpu().numpy()
+        self._shapes["decode"].add(1)
         return {slot: int(nxt[slot]) for slot in tokens_by_slot}
+
+    @torch.no_grad()
+    def verify(self, tokens_by_slot: dict[int, list[int]],
+               width: int) -> dict[int, list[int]]:
+        """One multi-token verify pass: each ACTIVE slot's row is its
+        last emitted token plus ``width - 1`` proposed tokens.  Returns
+        the target model's ``width`` next-token verdicts per active slot;
+        vacant slots run dead lanes.  A peek: every slot's index comes
+        back unchanged, and the caller then ADVANCES each active slot to
+        its accepted length with :meth:`rollback` before the next engine
+        call touches it."""
+        if width < 1:
+            raise ValueError(f"verify width must be >= 1, got {width}")
+        toks = np.zeros((self.max_batch, width), np.int64)
+        for slot, run in tokens_by_slot.items():
+            if len(run) != width:
+                raise ValueError(
+                    f"slot {slot}: run of {len(run)} tokens vs width "
+                    f"{width}")
+            toks[slot] = np.asarray(run, np.int64)
+        index = self.cache.index.clone()
+        hidden = self.model(self._tensor(toks), cache=self.cache,
+                            return_hidden=True)
+        self.cache.index.copy_(index)
+        logits = self.model.logits(hidden)
+        first = _sample(logits[:, 0], self._temps, self.generator,
+                        self._sampling())
+        rest = logits[:, 1:].argmax(dim=-1)
+        out = torch.cat([first[:, None], rest], dim=1).cpu().numpy()
+        self._shapes.setdefault("verify", set()).add(width)
+        return {slot: [int(t) for t in out[slot]]
+                for slot in tokens_by_slot}
+
+    @torch.no_grad()
+    def rollback(self, lengths_by_slot: dict[int, int]) -> None:
+        """Repair the index after a verify (or a draft's proposal run)
+        over-advanced it: each listed slot's index is set to its accepted
+        cache length; every other slot is untouched."""
+        if not lengths_by_slot:
+            return
+        listed = np.zeros((2, self.max_batch), np.int32)  # (mask, length)
+        for slot, n in lengths_by_slot.items():
+            if not 0 <= n <= self.cache_len:
+                raise ValueError(
+                    f"rollback length {n} outside [0, {self.cache_len}]")
+            listed[:, slot] = (1, n)
+        listed = self._tensor(listed)  # one copy
+        index = self.cache.index
+        index.copy_(torch.where(listed[0] != 0, listed[1], index))
+        self._shapes.setdefault("rollback", set()).add(())
+
+    def compile_counts(self) -> dict[str, int]:
+        """Distinct shapes run per entry point: one per prefill bucket,
+        one decode, one copy_prefix and, once speculation ran, one per
+        verify width and one rollback.  The JAX engine compiles one
+        program for each; here each is one CUDA graph a captured step
+        would need."""
+        return {name: len(shapes) for name, shapes in self._shapes.items()}
 
 
 # Named Llama configs for the demo surfaces (``--preset`` of the CLI).
