@@ -161,6 +161,31 @@ Phases, each printed as one JSON line:
    drain latency, each boot's time to its first heartbeat and to its
    first step, the heartbeats' largest gaps, the step with the planes on
    against the same run's with them off, and steps inside the capture.
+14. ``planes_llama3_1b``: the launch planes at llama3-1b width (2
+   layers), in subprocesses, with the kernel directory emptied (the build
+   phase's libraries set aside and put back after).  (a) ``create-stack
+   --accelerator h100-1``, ``launch --compile-cache --compile-cache-dir
+   D`` (no ``--ft``), the example for 3 steps: every library the
+   training step loads (K1, Delta, K2 and K3 ``sm90``) built once with
+   ``nvcc`` and published (the rank's compiles, publishes and nvcc runs
+   4, fetches 0), three finite losses.  (b) ``create-stack
+   --accelerator h100-2``, the kernel directory emptied again, ``launch
+   --ft --supervise --compile-cache`` on the same D with ``--input-hosts
+   1 --input-cmd "python -m tpucfn_torch.cli data serve ..."`` and a
+   ``--chaos-proxy`` in front of the input port, which the trainer
+   dials (``TPUCFN_INPUT_ADDRS`` set on its command); the ``--chaos``
+   spec paces the proxy's link at 1.5x the trainer's batch rate, then
+   trickles it at fleet step 3, then kills the coordinator at fleet step
+   30.  Gates: rc 0; all 4 libraries fetched, none built, no ``nvcc``;
+   the supervisor restarted the coordinator once and it adopted the
+   running rank (one launch, its pid in every heartbeat, no gang
+   restart, no budget spent); the stream served batches until the
+   trickle and degraded to local loading at the exact cursor within 10 s
+   of it and before the kill; the 34 losses within 1e-3 relative of the
+   uninterrupted run; every step 4/2/2/2 K1/K2/K3 ``sm90``/Delta
+   launches.  Printed: time_to_first_step cold and warm, the build
+   seconds against the fetch seconds, data wait served and local, the
+   degrade latency and batch, the coordinator's downtime.
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
 launched on a path above, and the old fma kernels of K1, K2 and K3,
@@ -186,7 +211,7 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "serve_spec_llama3_1b", "serve_router_llama3_1b",
           "serve_cli_llama3_1b", "train_llama3_1b", "train_tiny_fp32",
-          "example_llama3_1b", "ft_llama3_1b")
+          "example_llama3_1b", "ft_llama3_1b", "planes_llama3_1b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -2933,6 +2958,367 @@ def phase_ft_llama3_1b(results):
     return out
 
 
+# ---- phase 14 --------------------------------------------------------------
+# The launch planes at llama3-1b width (FT_JOB, 2 layers).  (a) a cold
+# fleet: every kernel library the path loads built once with nvcc and
+# published; (b) a warm fleet on two hosts, every library fetched, the
+# batches served by an input host through a chaos proxy until a trickle
+# there degrades the stream to local loading, then a coordinator kill the
+# supervisor recovers by adoption.
+PLANES_COLD_STEPS = 3
+# the libraries the training step loads (K1, Delta, K2 and K3 sm90)
+PLANES_LIBRARIES = ("flash_fwd_sm90", "flash_bwd", "flash_bwd_dq_sm90",
+                    "flash_bwd_dkv_sm90")
+# The trickle at fleet step 3; the coordinator kill at fleet step 30, when
+# the stream has long degraded (the gate checks the order).
+PLANES_THROTTLE_AT, PLANES_KILL_AT = 3, 30
+PLANES_TRICKLE_BPS = 64.0
+# Before the trickle the proxy paces the link: on loopback the proxy's send
+# buffer grows to megabytes, so an unpaced link holds ~240 of these 16 KB
+# batches ahead of the trainer (measured on the CPU), more than the run, and
+# a trickle would never reach it.  Until the fleet's step 1 the trainer
+# takes one batch, so whatever else the link carries then waits in its
+# buffers and holds the degrade back by as many steps.  On an H100 80GB
+# HBM3 at 700 W, at 1.5x the steady rate from the start, runs held 26-37
+# batches past the trickle's step, by how long the first step took, and
+# one degraded only at batch 41, past the run's 34 steps and the
+# coordinator kill; at 2 batches a second until step 1, 12-25, and at 1.5,
+# 13-18.  So until step 1 the link carries
+# 1.5 batches a second (two thirds of a second a batch, a third of the op
+# deadline), and from step 1 on 1.5x the rate the trainer consumes batches
+# (one a steady step of the uninterrupted run) keeps it ahead of the loop.
+PLANES_STARTUP_BATCHES_PER_S = 1.5
+PLANES_PACE = 1.5
+PLANES_OP_DEADLINE_S = 2.0   # the trainer's end-to-end deadline per batch
+PLANES_DEGRADE_GATE_S = 10.0  # trickle to degraded (the reference's gate)
+PLANES_RCVBUF = 64 * 1024
+PLANES_BATCH_BYTES = 2 * 2048 * 4  # one served batch: 2 x 2048 int32 tokens
+
+
+def _free_ports(n):
+    """``n`` distinct free ports."""
+    import socket
+
+    out = []
+    while len(out) < n:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            p = s.getsockname()[1]
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def _cache_counts(row):
+    return {k.removeprefix("compilecache_").removesuffix("_total"): v
+            for k, v in row.items()
+            if k.startswith("compilecache_") or k == "kernel_nvcc_runs"}
+
+
+def _launches_each_step(rows, start=0):
+    """Every loss row's kernel launches so far against 4/2/2/2 K1/K2/K3
+    sm90/Delta a step since ``start``."""
+    keys = {"kernel_launches_flash_fwd_sm90": 2 * LAUNCHES_PER_LAYER["k1"],
+            "kernel_launches_flash_bwd_dq_sm90": 2 * LAUNCHES_PER_LAYER["k2"],
+            "kernel_launches_flash_bwd_dkv_sm90": 2 * LAUNCHES_PER_LAYER["k3"],
+            "kernel_launches_flash_bwd_delta":
+                2 * LAUNCHES_PER_LAYER["delta"]}
+    for r in rows:
+        if "loss" not in r:
+            continue
+        got = {k: v for k, v in r.items() if k.startswith("kernel_launches_")}
+        want = {k: n * (r["step"] - start) for k, n in keys.items()}
+        assert got == want, (r["step"], got, want)
+    last = [r for r in rows if "loss" in r][-1]
+    return {"k1_sm90": int(last["kernel_launches_flash_fwd_sm90"]),
+            "k2_sm90": int(last["kernel_launches_flash_bwd_dq_sm90"]),
+            "k3_sm90": int(last["kernel_launches_flash_bwd_dkv_sm90"]),
+            "delta": int(last["kernel_launches_flash_bwd_delta"])}
+
+
+def phase_planes_llama3_1b(results):
+    """(a) ``launch --compile-cache`` on ``h100-1`` with an empty kernel
+    directory; (b) ``create-stack --accelerator h100-2`` and ``launch --ft
+    --supervise --compile-cache --input-hosts 1 --chaos-proxy --chaos``,
+    in subprocesses, the example at llama3-1b width (2 layers)."""
+    import os
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+
+    from tpucfn_torch.examples import llama3_8b_fsdp as ex
+    from tpucfn_torch.ft import replay_journal
+    from tpucfn_torch.kernels import _build
+    from tpucfn_torch.obs.trace import read_trace_dir
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="planes_llama3_1b-"))
+    build_dir = _build.BUILD_DIR
+    aside = build_dir.with_name(build_dir.name + ".planes-aside")
+    out = {"card": results.get("card"), "libraries": list(PLANES_LIBRARIES),
+           "throttle_at_step": PLANES_THROTTLE_AT,
+           "kill_coordinator_at_step": PLANES_KILL_AT,
+           "op_deadline_s": PLANES_OP_DEADLINE_S,
+           "whole_run_in_phase": "whole_2_layers" not in results}
+    cli = [sys.executable, "-m", "tpucfn_torch.cli"]
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    env.pop("TPUCFN_INPUT_ADDRS", None)
+
+    def launch(state, argv, log, env_extra, timeout):
+        with open(log.with_suffix(".out"), "w") as fo, \
+                open(log.with_suffix(".err"), "w") as fe:
+            proc = subprocess.Popen(
+                cli + ["--state-dir", str(state), *argv],
+                env={**env, **env_extra}, cwd=HERE, stdout=fo, stderr=fe,
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=timeout)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        stdout = log.with_suffix(".out").read_text()
+        if rc != 0:
+            print(log.with_suffix(".err").read_text()[-6000:],
+                  file=sys.stderr)
+        assert rc == 0 and "launch finished rc=0" in stdout, (
+            rc, stdout[-3000:])
+        return stdout
+
+    try:
+        whole = _whole_2_layers(results)
+        steady = sorted(whole["step_s"][2:])
+        step_s = statistics.median(steady)
+        pace_bps = PLANES_PACE * PLANES_BATCH_BYTES / step_s
+        out.update(whole_step_s=step_s, pace_bps=pace_bps)
+        build_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(build_dir, aside)  # the build phase's libraries
+        # the artifact servers of (a) and (b), the proxy, and the input
+        # host's port (host 1 binds the base + 1)
+        cc_a, cc_b, proxy_port, input_port = _free_ports(4)
+        input_base = input_port - 1
+        artifacts = root / "artifacts"
+
+        # (a) the cold fleet: one host, nothing built, nothing published
+        state_a, name_a = root / "state-a", "cold"
+        run_a = state_a / "clusters" / name_a
+        r = subprocess.run(cli + ["--state-dir", str(state_a), "create-stack",
+                                  "--name", name_a, "--accelerator", "h100-1"],
+                           env=env, cwd=HERE, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0, (r.stdout, r.stderr)
+        job_a = list(FT_JOB)
+        job_a[job_a.index("--steps") + 1] = str(PLANES_COLD_STEPS)
+        wall_a = time.time()
+        launch(state_a, ["launch", "--name", name_a, "--compile-cache",
+                         "--compile-cache-dir", str(artifacts),
+                         "--compile-cache-port", str(cc_a), "--",
+                         sys.executable, "-m",
+                         "tpucfn_torch.examples.llama3_8b_fsdp", *job_a,
+                         "--ckpt-every", "1000", "--run-dir", str(run_a)],
+               root / "launch-a",
+               {"TPUCFN_COMPILE_CACHE_DIR": str(root / "store-a")}, 900)
+        out["cold_wall_s"] = time.time() - wall_a
+        rows_a = _jsonl(run_a / "logs" / "train-host000.jsonl")
+        losses_a = [r["loss"] for r in rows_a if "loss" in r]
+        assert len(losses_a) == PLANES_COLD_STEPS and all(
+            math.isfinite(v) for v in losses_a), losses_a
+        cold = _cache_counts([r for r in rows_a if "loss" in r][-1])
+        built = sorted(p.name.rsplit("-", 1)[0]
+                       for p in build_dir.glob("*.so"))
+        out["cold"] = {"counters": cold, "built": built, "losses": losses_a,
+                       "launches": _launches_each_step(rows_a)}
+        n = len(PLANES_LIBRARIES)
+        assert built == sorted(PLANES_LIBRARIES), built
+        assert (cold["compiles"], cold["client_publishes"],
+                cold["fetch_hits"], cold["kernel_nvcc_runs"]) == (n, n, 0, n), \
+            cold
+        spans_a = read_trace_dir(run_a / "trace")
+        builds = {s["attrs"]["library"]: s["dur_s"] for s in spans_a
+                  if s["name"] == "kernel_build"}
+        assert sorted(builds) == sorted(PLANES_LIBRARIES), builds
+        out["cold"]["build_s"] = builds
+        out["cold"]["time_to_first_step"] = next(
+            r["time_to_first_step"] for r in rows_a
+            if "time_to_first_step" in r)
+
+        # (b) the warm fleet: two hosts, the kernel directory empty again
+        shutil.rmtree(build_dir, ignore_errors=True)
+        state_b, name_b = root / "state-b", "planes"
+        run_b = state_b / "clusters" / name_b
+        ft_dir = run_b / "ft"
+        r = subprocess.run(cli + ["--state-dir", str(state_b), "create-stack",
+                                  "--name", name_b, "--accelerator", "h100-2"],
+                           env=env, cwd=HERE, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0, (r.stdout, r.stderr)
+        # the shards the input host serves and the trainer falls back to,
+        # staged before either starts, as the example stages them
+        args_b = ex.build_parser().parse_args(
+            FT_JOB + ["--run-dir", str(run_b)])
+        shards = ex.stage_data(args_b, ex.model_config(args_b), run_b)
+        startup_bps = PLANES_STARTUP_BATCHES_PER_S * PLANES_BATCH_BYTES
+        out["startup_bps"] = startup_bps
+        spec = {"seed": 0, "events": [
+            {"action": "net_throttle", "at_s": 0, "rate_bps": startup_bps,
+             "duration_s": 3600},
+            {"action": "net_throttle", "at_step": 1, "rate_bps": pace_bps,
+             "duration_s": 3600},
+            {"action": "net_throttle", "at_step": PLANES_THROTTLE_AT,
+             "rate_bps": PLANES_TRICKLE_BPS, "duration_s": 3600},
+            {"action": "kill_coordinator", "at_step": PLANES_KILL_AT}]}
+        serve = (f"{sys.executable} -m tpucfn_torch.cli data serve --shards "
+                 f"{shards[0].parent} --batch-size 2 --host 127.0.0.1 "
+                 "--idle-exit 2 --queue-batches 1 --sndbuf-kb 64")
+        wall_b = time.time()
+        stdout_b = launch(
+            state_b,
+            ["launch", "--name", name_b, "--ft", "--supervise",
+             "--supervise-restarts", "1", "--ft-restart-budget", "0",
+             "--ft-heartbeat-interval", str(FT_HEARTBEAT_S),
+             "--ft-startup-grace", str(FT_STARTUP_GRACE_S),
+             "--compile-cache", "--compile-cache-dir", str(artifacts),
+             "--compile-cache-port", str(cc_b),
+             "--input-hosts", "1", "--input-port", str(input_base),
+             "--input-cmd", serve,
+             "--chaos-proxy", f"{proxy_port}:127.0.0.1:{input_port}",
+             "--chaos", json.dumps(spec), "--",
+             # the trainer reaches its input host through the proxy
+             "env", f"TPUCFN_INPUT_ADDRS=127.0.0.1:{proxy_port}",
+             f"TPUCFN_INPUT_OP_DEADLINE_S={PLANES_OP_DEADLINE_S}",
+             f"TPUCFN_INPUT_RCVBUF={PLANES_RCVBUF}",
+             sys.executable, "-m", "tpucfn_torch.examples.llama3_8b_fsdp",
+             *FT_JOB, "--ckpt-every", "1000", "--run-dir", str(run_b)],
+            root / "launch-b",
+            {"TPUCFN_COMPILE_CACHE_DIR": str(root / "store-b")}, 900)
+        out["warm_wall_s"] = time.time() - wall_b
+        try:
+            rows = _jsonl(run_b / "logs" / "train-host000.jsonl")
+            loss_rows = [r for r in rows if "loss" in r]
+            warm = _cache_counts(loss_rows[-1])
+            out["warm"] = {"counters": warm}
+            # every library fetched: no build, no nvcc
+            assert (warm["fetch_hits"], warm["compiles"],
+                    warm["kernel_nvcc_runs"], warm["store_hits"],
+                    warm["kernel_dir_hits"]) == (n, 0, 0, 0, 0), warm
+            assert not [p for p in build_dir.glob("*.so")
+                        if p.name.rsplit("-", 1)[0] not in PLANES_LIBRARIES]
+            spans = read_trace_dir(run_b / "trace")
+            fetches = {s["attrs"]["label"]: s["dur_s"] for s in spans
+                       if s["name"] == "compile_fetch"}
+            assert sorted(fetches) == sorted(PLANES_LIBRARIES), fetches
+            out["warm"]["fetch_s"] = fetches
+            out["warm"]["time_to_first_step"] = next(
+                r["time_to_first_step"] for r in rows
+                if "time_to_first_step" in r)
+
+            # the coordinator: one launch, killed, restarted by the
+            # supervisor, adopting the rank: no gang restart, no budget
+            ev = _jsonl(ft_dir / "events.jsonl")
+            kinds = [e["kind"] for e in ev]
+            out["events"] = kinds
+            assert kinds.count("launch") == 1 and "decide" not in kinds, kinds
+            assert [k for k in kinds if k.startswith("coordinator_")] == [
+                "coordinator_killed", "coordinator_restarted",
+                "coordinator_adopted"], kinds
+            killed = next(e for e in ev if e["kind"] == "coordinator_killed")
+            adopted = next(e for e in ev if e["kind"] == "coordinator_adopted")
+            assert adopted["budget_used"] == 0 and 0 in adopted["hosts"], \
+                adopted
+            sup = json.loads((ft_dir / "supervisor.json").read_text())
+            assert sup["budget"]["used"] == 0, sup["budget"]
+            rank_pid = next(e for e in ev if e["kind"] == "launch")["pids"][0]
+            beats = _jsonl(ft_dir / "hb-host000.jsonl")
+            assert {b["pid"] for b in beats} == {rank_pid}, (
+                rank_pid, {b["pid"] for b in beats})
+            fired = [r for r in replay_journal(
+                ft_dir / "journal" / "journal.jsonl")[1]
+                if r["kind"] == "chaos_fired"]
+            assert [f["action"] for f in fired] == [
+                "net_throttle", "net_throttle", "net_throttle",
+                "kill_coordinator"], fired
+
+            # the input plane: served until the trickle, then local from
+            # the exact cursor, inside the deadline's gate
+            faults = [e for e in ev if e["kind"] == "chaos_net_fault"]
+            degraded = [r for r in rows if "input_degraded_cursor" in r]
+            assert len(faults) == 3 and len(degraded) == 1, (faults, degraded)
+            trickle_t = faults[2]["ts"]
+            deg = degraded[0]
+            cursor = int(deg["input_degraded_cursor"])
+            served = [json.loads(line) for line in stdout_b.splitlines()
+                      if line.startswith('{"served_s"')]
+            assert served and served[0]["connections"] >= 1, served
+            latency = deg["input_degraded_wall"] - trickle_t
+            out["input"] = {
+                "degrade_latency_s": latency, "degraded_at_batch": cursor,
+                "service": served[0],
+                "trickle_after_step": max(
+                    [r["step"] for r in loss_rows if r["time"] <= trickle_t],
+                    default=0),
+                "degraded_log_step": deg["step"]}
+            assert 0 < latency <= PLANES_DEGRADE_GATE_S, latency
+            assert PLANES_THROTTLE_AT <= cursor < FT_STEPS, cursor
+            assert served[0]["batches_streamed"] >= cursor, served
+            assert deg["input_degraded_wall"] < killed["ts"], (
+                deg, killed)
+            waits = {r["trace_id"]: r["dur_s"] for r in spans
+                     if r["name"] == "data_wait"}
+            out["input"]["data_wait_ms"] = {
+                "served": _mean([1e3 * w for s, w in waits.items()
+                                 if 1 < s <= cursor]),
+                "local": _mean([1e3 * w for s, w in waits.items()
+                                if s > cursor + 1]),
+                "whole_run_local": _mean([1e3 * w for w in
+                                          whole["data_wait_s"][1:]])}
+            # how long the link ran at the startup pace: the first step
+            out["input"]["first_step_s"] = next(
+                (s["dur_s"] for s in spans
+                 if s["name"] == "step" and s["trace_id"] == 1), None)
+            out["coordinator_downtime_s"] = adopted["ts"] - killed["ts"]
+
+            # the losses: every step's within 1e-3 of the uninterrupted run
+            losses = {r["step"]: r["loss"] for r in loss_rows}
+            steps = list(range(1, FT_STEPS + 1))
+            assert sorted(losses) == steps, sorted(losses)
+            rel = max(abs(losses[i] - whole["losses"][i])
+                      / abs(whole["losses"][i]) for i in steps)
+            out["losses_max_rel_diff"] = rel
+            assert rel <= EXAMPLE_LOSS_REL_TOL, (losses, whole["losses"])
+            # 4/2/2/2 K1/K2/K3 sm90/Delta every step, from step 0
+            results["planes_launches"] = _launches_each_step(rows)
+            out["launches"] = results["planes_launches"]
+        except Exception:
+            for path in (ft_dir / "events.jsonl",
+                         root / "launch-b.out", root / "launch-b.err"):
+                if path.exists():
+                    print(f"--- {path.name}\n{path.read_text()[-8000:]}",
+                          file=sys.stderr)
+            print(json.dumps({"planes_llama3_1b_partial": out}, default=str),
+                  file=sys.stderr)
+            raise
+        out["build_s_saved"] = (sum(out["cold"]["build_s"].values())
+                                - sum(out["warm"]["fetch_s"].values()))
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"planes_llama3_1b on {results.get('card')}: time_to_first_step "
+              f"cold {out['cold']['time_to_first_step']} s / warm "
+              f"{out['warm']['time_to_first_step']} s, build "
+              f"{sum(out['cold']['build_s'].values()):.2f} s against fetch "
+              f"{sum(out['warm']['fetch_s'].values()):.3f} s, degrade "
+              f"{out['input']['degrade_latency_s']:.2f} s at batch "
+              f"{out['input']['degraded_at_batch']}, coordinator down "
+              f"{out['coordinator_downtime_s']:.2f} s, phase "
+              f"{out['phase_s']:.1f} s", flush=True)
+        print(json.dumps({"planes_llama3_1b": out}), flush=True)
+    finally:
+        if aside.exists():
+            shutil.rmtree(build_dir, ignore_errors=True)
+            os.replace(aside, build_dir)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 
@@ -2947,6 +3333,7 @@ def _kernels_line(results):
     example = results["example_launches"]
     packed = results["example_packed_launches"]
     ft = results["ft_launches"]
+    planes = results["planes_launches"]
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
     spec, router = results["spec_launches"], results["router_launches"]
@@ -2991,7 +3378,8 @@ def _kernels_line(results):
                "train_llama3_1b": train["k1_sm90"],
                "example_llama3_1b": example["k1_sm90"],
                "example_llama3_1b_packed": packed["k1_sm90"],
-               "ft_llama3_1b": ft["k1_sm90"]},
+               "ft_llama3_1b": ft["k1_sm90"],
+               "planes_llama3_1b": planes["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"],
@@ -3015,14 +3403,16 @@ def _kernels_line(results):
                "train_tiny_fp32": tiny["delta"],
                "example_llama3_1b": example["delta"],
                "example_llama3_1b_packed": packed["delta"],
-               "ft_llama3_1b": ft["delta"]}, bwd,
+               "ft_llama3_1b": ft["delta"],
+               "planes_llama3_1b": planes["delta"]}, bwd,
               "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
               {"train_llama3_1b": train["k2_sm90"],
                "example_llama3_1b": example["k2_sm90"],
                "example_llama3_1b_packed": packed["k2_sm90"],
-               "ft_llama3_1b": ft["k2_sm90"]},
+               "ft_llama3_1b": ft["k2_sm90"],
+               "planes_llama3_1b": planes["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
               {"train_tiny_fp32": tiny["k2_mma"]},
@@ -3034,7 +3424,8 @@ def _kernels_line(results):
               {"train_llama3_1b": train["k3_sm90"],
                "example_llama3_1b": example["k3_sm90"],
                "example_llama3_1b_packed": packed["k3_sm90"],
-               "ft_llama3_1b": ft["k3_sm90"]},
+               "ft_llama3_1b": ft["k3_sm90"],
+               "planes_llama3_1b": planes["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
               {"train_tiny_fp32": tiny["k3_mma"]},
@@ -3087,7 +3478,8 @@ def main(argv=None) -> int:
            "train_llama3_1b": lambda: phase_train_llama3_1b(results),
            "train_tiny_fp32": lambda: phase_train_tiny_fp32(results),
            "example_llama3_1b": lambda: phase_example_llama3_1b(results),
-           "ft_llama3_1b": lambda: phase_ft_llama3_1b(results)}
+           "ft_llama3_1b": lambda: phase_ft_llama3_1b(results),
+           "planes_llama3_1b": lambda: phase_planes_llama3_1b(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

@@ -8,7 +8,8 @@ absent; and ``should_use_flash`` on the accelerator (JAX's backend
 "tpu", the port's device "cuda") and off it (both CPU), with both length
 thresholds set to the JAX package's defaults through their environment
 variables.  The port's own defaults (both 0) take the kernels on the card
-wherever no measured entry says dense.  Also the repair of the port's
+wherever no measured entry says dense, at the head dims and dtypes the
+kernels are built for.  Also the repair of the port's
 defaults: ``Llama`` outside decode and the packed attention resolve
 through this policy.
 """
@@ -128,6 +129,30 @@ def test_port_defaults_take_the_kernels_on_the_card(table, on_card,
                                          mask="m")
         assert not auto.should_use_flash(s, causal=False, d=d, dtype=tdt,
                                          device=device)
+
+
+@pytest.mark.parametrize("d,dtype", [(40, torch.bfloat16),
+                                     (40, torch.float32),
+                                     (64, torch.float16),
+                                     (128, torch.float16)],
+                         ids=["d40-bf16", "d40-fp32", "d64-fp16",
+                              "d128-fp16"])
+def test_unbuilt_head_dim_or_dtype_stays_dense_on_the_card(table, d, dtype,
+                                                           monkeypatch):
+    """A head dim outside the kernels' ``HEAD_DIMS`` or a dtype outside
+    their ``DTYPES`` takes the dense path on a CUDA device, whatever the
+    table says (the kernels would refuse it); D = 64 in bf16 follows the
+    evidence as before."""
+    monkeypatch.delenv("TPUCFN_FLASH_MIN_S", raising=False)
+    monkeypatch.delenv("TPUCFN_FLASH_UNTUNED_MIN_S", raising=False)
+    for s in SEQS:
+        assert not auto.should_use_flash(s, d=d, dtype=dtype, device="cuda")
+        assert not auto.should_use_flash_full(s, s, d=d, dtype=dtype,
+                                              device="cuda")
+        assert auto.should_use_flash(s, d=64, dtype=torch.bfloat16,
+                                     device="cuda") == (table != "losing")
+        assert auto.should_use_flash_full(s, s, d=64, dtype=torch.bfloat16,
+                                          device="cuda")
 
 
 def test_thresholds_follow_the_same_env(monkeypatch):

@@ -13,9 +13,9 @@
   from step 3`` and its losses for steps 4-6 equal an uninterrupted run's
   exactly.
 * Packed: ``--packed`` runs 3 steps with finite losses.
-* Refusals: each unported plane's env variable (the input service and
-  the compile cache) and each unported flag exits non-zero naming what is
-  missing; a step that will not restore
+* Refusals: each unported flag exits non-zero naming what is missing
+  (the input service and the compile cache, refused here before, run
+  since: ``tests/test_torch_planes.py``); a step that will not restore
   exits with ``RESTORE_FAILED_RC``; without ``--device cpu`` there is no
   card here, and the example raises instead of training on the CPU.
 """
@@ -232,21 +232,6 @@ def test_packed_runs(tmp_path):
     assert (tmp_path / "data" / "corpus.jsonl").exists()
 
 
-PLANES = ["TPUCFN_INPUT_ADDRS", "TPUCFN_COMPILE_CACHE_ADDRS"]
-
-
-@pytest.mark.parametrize("var", PLANES)
-def test_unported_plane_env_is_refused(var, tmp_path, monkeypatch):
-    from tpucfn_torch.examples import llama3_8b_fsdp as ex
-
-    monkeypatch.setenv(var, "127.0.0.1:9000")
-    with pytest.raises(SystemExit) as e:
-        ex.main(["--device", "cpu", "--run-dir", str(tmp_path), *TINY])
-    assert isinstance(e.value.code, str)  # exit status 1, message on stderr
-    assert var in e.value.code and "ROADMAP Queue 1 B" in e.value.code
-    assert not list(tmp_path.iterdir())  # refused before any work
-
-
 @pytest.mark.parametrize("flags,item", [
     (["--profile-server", "9001"], "B3"),
     (["--fsdp", "2"], "C2"), (["--tensor", "2"], "C2"),
@@ -288,14 +273,15 @@ def test_eval_every_without_a_held_out_split_is_refused(tmp_path, no_group):
 
 
 def test_refused_plane_exits_non_zero_as_a_program(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(REPO),
-               TPUCFN_INPUT_ADDRS="127.0.0.1:9000")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, str(EXAMPLE), "--device", "cpu",
-                        "--run-dir", str(tmp_path / "run"), *TINY],
+                        "--run-dir", str(tmp_path / "run"), *TINY,
+                        "--profile-server", "9001"],
                        env=env, cwd=REPO, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 1
-    assert "input service" in r.stderr and "ROADMAP" in r.stderr
+    assert "--profile-server" in r.stderr and "ROADMAP" in r.stderr
+    assert not (tmp_path / "run").exists()
 
 
 def test_a_step_that_will_not_restore_exits_restore_failed(tmp_path,

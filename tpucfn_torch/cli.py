@@ -17,13 +17,16 @@ state file holds TPU accelerators that the port's registry does not know) throug
 control plane; ``--backend gcp`` (TPU queued resources) is refused.
 ``launch`` fans the command out with the env contract and, with
 ``--ft``, runs it under the gang coordinator (heartbeats, restarts with
-a budget, preemption drain, checkpoint-corruption retry, chaos specs).
-The launch planes that are not ported exit 2 naming their ROADMAP item:
-the input service (``--input-*``, ``--ft-restart-input-hosts``: Queue 1
-B2), the compile cache (``--compile-cache*``: B4), the supervised
-coordinator (``--supervise*``: B5), the network chaos proxy
-(``--chaos-proxy`` and ``net_*`` chaos events: B6) and the provisioner
-policy loop (``--provision-*``, ``--defer-input-plane``: B7).
+a budget, preemption drain, checkpoint-corruption retry, chaos specs),
+with the reference's launch planes: ``--supervise`` (the coordinator
+under a re-exec loop that relaunches it to adopt the running fleet),
+``--input-hosts``/``--input-cmd`` (input hosts running ``data serve``),
+``--compile-cache`` (the kernel libraries' artifact server in the launch
+process) and ``--chaos-proxy`` (fault-injection proxies for the ``net_*``
+chaos events).  The provisioner policy loop's flags (``--provision-*``,
+``--defer-input-plane``) exit 2 naming Queue 1 B7.  ``data serve``,
+``compilecache serve|gc|stats`` and ``chaos proxy`` are the reference's
+standalone planes; none of them touches the card.
 
 ``serve`` is ``tpucfn serve`` (``tpucfn/cli/main.py:cmd_serve``):
 continuous-batching inference over a workload of token-id prompts
@@ -34,8 +37,9 @@ metrics snapshot as one JSON line: speculative decoding
 admission and SLO flags, a graceful drain on SIGTERM, the obs endpoint
 (``--obs-port``), request trace spans (``--trace-dir``), the flight
 recorder and, under ``TPUCFN_FT_DIR``, heartbeats.  It runs on the card
-unless ``--device cpu`` is given.  With ``TPUCFN_COMPILE_CACHE_ADDRS``
-set it exits 2 (the compile cache: Queue 1 B4).  ``obs`` reads a run
+unless ``--device cpu`` is given; with ``TPUCFN_COMPILE_CACHE_ADDRS`` or
+``TPUCFN_COMPILE_CACHE_DIR`` set, its kernel libraries go through the
+fleet cache.  ``obs`` reads a run
 directory's metrics and trace JSONL back as one fleet view
 (``tpucfn/cli/main.py:cmd_obs``).
 """
@@ -59,28 +63,6 @@ from tpucfn_torch.spec import ClusterSpec
 # (flag, argparse dest, what it asks for, ROADMAP item) for each launch
 # option of the JAX package whose plane the port does not have.
 REFUSED_LAUNCH_FLAGS = (
-    ("--input-hosts", "input_hosts", "the disaggregated input service",
-     "Queue 1 B2"),
-    ("--input-port", "input_port", "the disaggregated input service",
-     "Queue 1 B2"),
-    ("--input-cmd", "input_cmd", "the disaggregated input service",
-     "Queue 1 B2"),
-    ("--ft-restart-input-hosts", "ft_restart_input_hosts",
-     "the disaggregated input service", "Queue 1 B2"),
-    ("--compile-cache", "compile_cache", "the fleet compile cache",
-     "Queue 1 B4"),
-    ("--compile-cache-dir", "compile_cache_dir", "the fleet compile cache",
-     "Queue 1 B4"),
-    ("--compile-cache-port", "compile_cache_port", "the fleet compile cache",
-     "Queue 1 B4"),
-    ("--compile-cache-advertise", "compile_cache_advertise",
-     "the fleet compile cache", "Queue 1 B4"),
-    ("--supervise", "supervise", "the supervised coordinator",
-     "Queue 1 B5"),
-    ("--supervise-restarts", "supervise_restarts",
-     "the supervised coordinator", "Queue 1 B5"),
-    ("--chaos-proxy", "chaos_proxy", "the network chaos proxy",
-     "Queue 1 B6"),
     ("--provision-policy", "provision_policy",
      "the provisioner policy loop", "Queue 1 B7"),
     ("--provision-interval", "provision_interval",
@@ -97,8 +79,7 @@ REFUSED_LAUNCH_FLAGS = (
      "the provisioner policy loop", "Queue 1 B7"),
 )
 # Flags of the list above that take no value.
-_REFUSED_SWITCHES = ("--ft-restart-input-hosts", "--compile-cache",
-                     "--supervise", "--defer-input-plane")
+_REFUSED_SWITCHES = ("--defer-input-plane",)
 
 
 def _slo_objective(s: str) -> float:
@@ -130,12 +111,6 @@ def cmd_serve(args) -> int:
     and accepted work gets ``--drain-grace`` to finish."""
     import signal
 
-    from tpucfn_torch.launch.launcher import COMPILE_CACHE_ADDRS_ENV
-
-    if os.environ.get(COMPILE_CACHE_ADDRS_ENV, "").strip():
-        return _refuse(f"{COMPILE_CACHE_ADDRS_ENV} is set: the fleet compile "
-                       "cache is not ported to tpucfn_torch yet (ROADMAP "
-                       "Queue 1 B4)")
     from tpucfn_torch.obs.flight import FlightRecorder
     from tpucfn_torch.obs.metrics import register_device_gauges
     from tpucfn_torch.obs.registry import MetricRegistry
@@ -147,6 +122,18 @@ def cmd_serve(args) -> int:
     # Host identity: under `launch` every rank carries TPUCFN_HOST_ID.
     host_id = int(os.environ.get("TPUCFN_HOST_ID", "0") or 0)
     registry = MetricRegistry(labels={"role": "server", "host": str(host_id)})
+    # Fleet warm start: installed before the first engine is built, so
+    # every replica's kernel libraries (a probation relaunch's too) come
+    # from the kernel directory, the artifact store or the fleet before
+    # nvcc builds one.  Env unset: None, the kernels build as ever.  The
+    # CPU's plain paths load no library.
+    cc_cache = None
+    from tpucfn_torch.device import resolve_device
+
+    if resolve_device(args.device).type == "cuda":
+        from tpucfn_torch.compilecache import configure_from_env
+
+        cc_cache = configure_from_env(registry=registry)
     cfg, engine = demo_llama_engine(args.preset, seed=args.seed,
                                     max_batch=args.max_batch,
                                     cache_len=args.cache_len,
@@ -359,6 +346,11 @@ def cmd_serve(args) -> int:
             server.run_until_idle()
     finally:
         # A failing run still releases the bound port and the trace file.
+        if cc_cache is not None:
+            from tpucfn_torch.compilecache import kernels as kernel_cache
+
+            if kernel_cache.installed() is cc_cache:
+                kernel_cache.install(None)
         if tracer is not None:
             tracer.close()
         if obs_srv is not None:
@@ -625,34 +617,15 @@ def _refused_launch_flag(args) -> str | None:
 
 
 def cmd_launch(args) -> int:
-    """``tpucfn launch`` (``tpucfn/cli/main.py:cmd_launch``) without the
-    planes the port does not have, which exit 2 before anything runs."""
+    """``tpucfn launch`` (``tpucfn/cli/main.py:cmd_launch``): the command
+    fanned out over the cluster's hosts, with its planes: the gang
+    coordinator (``--ft``), self-supervision (``--supervise``), input
+    hosts (``--input-hosts``), the kernel-library cache's artifact
+    server (``--compile-cache``) and chaos proxies (``--chaos-proxy``).
+    The provisioner policy loop's flags exit 2 before anything runs."""
     refused = _refused_launch_flag(args)
     if refused:
         return _refuse(refused)
-    # A launch-level chaos spec replays against the gang coordinator's
-    # supervision clock: kills, hangs, heartbeat delays, preemption
-    # notices, host loss and checkpoint corruption.
-    chaos_spec = None
-    if args.chaos:
-        if not args.ft:
-            return _refuse("--chaos needs --ft (chaos specs replay against "
-                           "the gang coordinator's supervision clock)")
-        from tpucfn_torch.ft.chaos import ChaosSpec
-
-        raw = args.chaos
-        try:
-            if not raw.lstrip().startswith("{"):
-                raw = Path(raw).read_text()
-            chaos_spec = ChaosSpec.from_json(raw)
-        except (OSError, ValueError, TypeError) as e:
-            return _refuse(f"bad --chaos spec: {e}")
-        net = sorted({e.action for e in chaos_spec.events
-                      if e.action.startswith("net_")})
-        if net:
-            return _refuse(f"--chaos schedules {', '.join(net)}: the network "
-                           "chaos proxy is not ported to tpucfn_torch yet "
-                           "(ROADMAP Queue 1 B6)")
     rec = _control_plane(args).describe(args.name)
     from tpucfn_torch.provision.control_plane import ClusterState
 
@@ -663,6 +636,42 @@ def cmd_launch(args) -> int:
     contract = converge(rec, _run_dir(args, args.name))
     transport = SSHTransport() if args.transport == "ssh" else LocalTransport()
     ft_dir = _run_dir(args, args.name) / "ft" if args.ft else None
+    if args.supervise:
+        # Self-supervision: re-exec this same invocation (minus the
+        # supervise flags) under the supervise loop.  A crashed
+        # coordinator is relaunched and adopts the running fleet through
+        # the write-ahead journal; a finished run's rc propagates.
+        if not args.ft:
+            return _refuse("--supervise needs --ft (the write-ahead journal "
+                           "and fleet adoption live under the ft dir)")
+        from tpucfn_torch.launch.supervise import (run_supervised,
+                                                   supervised_cli_argv)
+
+        child = supervised_cli_argv(args.argv)
+        print(f"supervising coordinator (up to {args.supervise_restarts} "
+              f"restart(s); journal under {ft_dir}/journal)",
+              file=sys.stderr)
+        rc = run_supervised(child, ft_dir=ft_dir,
+                            max_restarts=args.supervise_restarts)
+        print(f"launch finished rc={rc}")
+        return rc
+    if args.input_hosts and args.input_hosts >= contract.workers_count:
+        return _refuse(f"--input-hosts {args.input_hosts} leaves no trainer "
+                       f"in a {contract.workers_count}-host cluster")
+    if args.input_hosts and not args.input_cmd:
+        # A job that does not switch on TPUCFN_ROLE would run a second
+        # trainer on the input host: refuse rather than no-op.
+        return _refuse("--input-hosts needs --input-cmd (e.g. --input-cmd "
+                       "'python -m tpucfn_torch.cli data serve --shards D "
+                       "--batch-size B'): input hosts must run the input "
+                       "service, not a copy of the trainer argv")
+    input_argv = None
+    if args.input_cmd:
+        import shlex
+
+        input_argv = shlex.split(args.input_cmd)
+    # All usage validation before any server binds: an early return
+    # below must not leak a bound artifact-server port.
     argv = list(args.cmd)
     if argv and argv[0] == "--":
         argv = argv[1:]
@@ -680,16 +689,102 @@ def cmd_launch(args) -> int:
         if not 0 <= inject[0] < len(contract.hosts()):
             return _refuse(f"--kill-host-after host {inject[0]} out of range "
                            f"(cluster has {len(contract.hosts())} hosts)")
+    # A launch-level chaos spec replays against the gang coordinator's
+    # supervision clock: kills, hangs, heartbeat delays, preemption
+    # notices, host loss, checkpoint corruption, a coordinator kill, and
+    # the net_* faults, which land on this process's --chaos-proxy
+    # instances.  Parsing is validation and precedes every bind.
+    chaos_spec = None
+    if args.chaos:
+        if not args.ft:
+            return _refuse("--chaos needs --ft (chaos specs replay against "
+                           "the gang coordinator's supervision clock)")
+        from tpucfn_torch.ft.chaos import ChaosSpec
+
+        raw = args.chaos
+        try:
+            if not raw.lstrip().startswith("{"):
+                raw = Path(raw).read_text()
+            chaos_spec = ChaosSpec.from_json(raw)
+        except (OSError, ValueError, TypeError) as e:
+            return _refuse(f"bad --chaos spec: {e}")
+    proxy_specs: list[tuple[int, str]] = []
+    for raw in args.chaos_proxy or []:
+        parts = raw.split(":")
+        if len(parts) != 3 or not parts[0].isdigit() \
+                or not parts[2].isdigit():
+            return _refuse("--chaos-proxy wants LISTEN:HOST:PORT (e.g. "
+                           f"7651:127.0.0.1:7641), got {raw!r}")
+        proxy_specs.append((int(parts[0]), f"{parts[1]}:{parts[2]}"))
+    if chaos_spec is not None and not proxy_specs \
+            and any(e.action.startswith("net_") for e in chaos_spec.events):
+        return _refuse("--chaos spec schedules net_* events: they need at "
+                       "least one --chaos-proxy LISTEN:HOST:PORT to land on")
     registry = None
-    if args.obs_port:
+    if args.obs_port or args.compile_cache:
+        # one supervisor registry for everything this process hosts: the
+        # artifact server's compilecache_* counters land on the /metrics
+        # the obs endpoint serves
         from tpucfn_torch.obs.registry import MetricRegistry
 
         registry = MetricRegistry(labels={"role": "supervisor"})
+    # Fleet warm start: this process runs the artifact server and fans
+    # its address out (TPUCFN_COMPILE_CACHE_ADDRS): one host builds each
+    # kernel library, the rest fetch it, and every relaunch re-derives
+    # the same env.  The server never touches the card.
+    cc_server = None
+    cc_addrs = None
+    if args.compile_cache:
+        from tpucfn_torch.compilecache.service import (
+            DEFAULT_COMPILE_CACHE_PORT, ArtifactServer)
+
+        cc_dir = args.compile_cache_dir or str(
+            _run_dir(args, args.name) / "compilecache")
+        cc_server = ArtifactServer(
+            cc_dir, host="0.0.0.0",
+            port=args.compile_cache_port or DEFAULT_COMPILE_CACHE_PORT,
+            registry=registry)
+        cc_server.start()
+        # The server runs in THIS process: advertise an address of this
+        # machine as the fleet sees it (the coordinator host by default).
+        advertise = (args.compile_cache_advertise
+                     or ("127.0.0.1" if args.transport == "local"
+                         else contract.coordinator.rsplit(":", 1)[0]))
+        cc_addrs = [f"{advertise}:{cc_server.port}"]
+        print(f"compile-artifact server: {cc_addrs[0]} (store {cc_dir})",
+              file=sys.stderr)
+    net_proxies = []
+    if proxy_specs:
+        from tpucfn_torch.net.proxy import ChaosProxy
+
+        try:
+            for listen, upstream in proxy_specs:
+                proxy = ChaosProxy(upstream, host="0.0.0.0", port=listen,
+                                   registry=registry)
+                proxy.start()
+                net_proxies.append(proxy)
+                print(f"chaos proxy: :{proxy.port} -> {upstream}",
+                      file=sys.stderr)
+        except BaseException:
+            for proxy in net_proxies:
+                proxy.close()
+            if cc_server is not None:
+                cc_server.close()
+            raise
     launcher = Launcher(contract, transport,
                         obs_base_port=args.obs_port or None,
                         ft_dir=str(ft_dir) if ft_dir else None,
                         ft_heartbeat_s=(args.ft_heartbeat_interval
-                                        if args.ft else None))
+                                        if args.ft else None),
+                        input_hosts=args.input_hosts,
+                        input_port=args.input_port or None,
+                        input_argv=input_argv,
+                        # a local fleet runs every host on loopback while
+                        # the fake control plane's hostfile names 10.0.0.x
+                        input_advertise_host=("127.0.0.1"
+                                              if args.transport != "ssh"
+                                              else None),
+                        compile_cache_addrs=cc_addrs)
     from tpucfn_torch.launch import run_with_restarts
 
     obs_srv = None
@@ -697,19 +792,6 @@ def cmd_launch(args) -> int:
     # The launched gang is hosts()[:workers_count] (Launcher.launch's
     # precedence rule): what the monitor judges and whose ports serve.
     n_launched = len(contract.hosts()[:contract.workers_count])
-    if args.ft:
-        # Heartbeat monitor over the dir every rank writes into.  Startup
-        # grace must cover a rank's boot (torch import, loading the
-        # kernel libraries, init or restore, step 1): a booting gang that
-        # has not beaten yet is not hung.  Crash detection (process exit)
-        # is unaffected by it.
-        from tpucfn_torch.ft import HeartbeatMonitor, MonitorConfig
-
-        monitor = HeartbeatMonitor(
-            ft_dir, expected_hosts=n_launched,
-            config=MonitorConfig(
-                interval_s=args.ft_heartbeat_interval,
-                startup_grace_s=args.ft_startup_grace))
     # /healthz late-binds to the coordinator once it exists so the probe
     # carries journal/adoption state on top of the monitor's fleet view;
     # before that (and without --ft) it falls back to the monitor or
@@ -724,17 +806,40 @@ def cmd_launch(args) -> int:
             return monitor.health()
         return True, {}
 
-    if args.obs_port:
-        # The supervisor owns the base port, the ranks get
-        # base + 1 + host_id (Launcher.host_env).
-        from tpucfn_torch.obs.server import start_obs_server
+    try:
+        # Anything that can raise between the servers binding and the
+        # main try/finally (monitor dirs, the obs port) must not leak
+        # them.
+        if args.ft:
+            # Heartbeat monitor over the dir every rank writes into.
+            # Startup grace must cover a rank's boot (torch import,
+            # loading the kernel libraries, init or restore, step 1): a
+            # booting gang that has not beaten yet is not hung.  Crash
+            # detection (process exit) is unaffected by it.
+            from tpucfn_torch.ft import HeartbeatMonitor, MonitorConfig
 
-        obs_srv = start_obs_server(
-            registry, port=args.obs_port, role="supervisor",
-            health_fn=_health_fn if args.ft else None)
-        print(f"supervisor obs endpoint: {obs_srv.url()} "
-              f"(hosts at ports {args.obs_port + 1}..."
-              f"{args.obs_port + n_launched})", file=sys.stderr)
+            monitor = HeartbeatMonitor(
+                ft_dir, expected_hosts=n_launched,
+                config=MonitorConfig(
+                    interval_s=args.ft_heartbeat_interval,
+                    startup_grace_s=args.ft_startup_grace))
+        if args.obs_port:
+            # The supervisor owns the base port, the ranks get
+            # base + 1 + host_id (Launcher.host_env).
+            from tpucfn_torch.obs.server import start_obs_server
+
+            obs_srv = start_obs_server(
+                registry, port=args.obs_port, role="supervisor",
+                health_fn=_health_fn if args.ft else None)
+            print(f"supervisor obs endpoint: {obs_srv.url()} "
+                  f"(hosts at ports {args.obs_port + 1}..."
+                  f"{args.obs_port + n_launched})", file=sys.stderr)
+    except BaseException:
+        for proxy in net_proxies:
+            proxy.close()
+        if cc_server is not None:
+            cc_server.close()
+        raise
     try:
         if args.ft:
             import random
@@ -777,9 +882,11 @@ def cmd_launch(args) -> int:
                 straggler_guard=StragglerGuard(
                     hysteresis_s=args.ft_straggler_hysteresis,
                     flap_budget=args.ft_straggler_flap_budget),
+                restart_input_hosts=args.ft_restart_input_hosts,
                 adopt=(True if args.adopt
                        else False if args.no_adopt else "auto"),
-                chaos=chaos_spec)
+                chaos=chaos_spec,
+                net_proxies=net_proxies)
             coord_ref["coord"] = coordinator
             rc = coordinator.run()
         else:
@@ -788,8 +895,328 @@ def cmd_launch(args) -> int:
     finally:
         if obs_srv is not None:
             obs_srv.close()
+        for proxy in net_proxies:
+            proxy.close()
+        if cc_server is not None:
+            cc_server.close()
     print(f"launch finished rc={rc}")
     return rc
+
+
+def cmd_chaos_proxy(args) -> int:
+    """Run the network fault-injection proxy standalone (ISSUE 15):
+    ``tpucfn chaos proxy --listen P --upstream H:P --spec faults.json``
+    fronts any fleet plane's port and injects the scheduled gray
+    failures (latency/throttle/stall/partition/tear/rst) at their
+    seeded, deterministic times.  SIGTERM (or ``--serve-for``) ends it
+    with a stats JSON line — the same operational shape as ``tpucfn
+    data serve`` and ``compilecache serve``."""
+    import json as _json
+    import signal as _signal
+    import time as _time
+
+    from tpucfn_torch.net.proxy import ChaosProxy, NetFaultSchedule
+
+    host, _, port = args.upstream.rpartition(":")
+    if not port.isdigit():
+        print(f"error: --upstream wants HOST:PORT, got {args.upstream!r}",
+              file=sys.stderr)
+        return 2
+    schedule = None
+    if args.spec:
+        raw = args.spec
+        try:
+            if not raw.lstrip().startswith("{"):
+                raw = Path(raw).read_text()
+            schedule = NetFaultSchedule.from_json(raw)
+            if args.seed is not None:
+                schedule = NetFaultSchedule(faults=schedule.faults,
+                                            seed=args.seed)
+        except (OSError, ValueError, TypeError) as e:
+            print(f"error: bad --spec: {e}", file=sys.stderr)
+            return 2
+    from tpucfn_torch.obs.registry import MetricRegistry
+
+    registry = MetricRegistry(labels={"role": "chaosproxy"})
+    proxy = ChaosProxy(args.upstream, host=args.host, port=args.listen,
+                       schedule=schedule, registry=registry)
+    stop = [False]
+
+    def _on_term(signum, frame):
+        # ONE plain GIL-atomic store (the PR 8 signal lesson); the main
+        # loop notices and closes.
+        stop[0] = True
+
+    try:
+        _signal.signal(_signal.SIGTERM, _on_term)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    t0 = _time.monotonic()
+    try:
+        proxy.start()
+        print(f"chaos proxy listening on {proxy.address} -> "
+              f"{args.upstream}"
+              + (f" ({len(schedule.faults)} scheduled fault(s), "
+                 f"seed {schedule.seed})" if schedule else ""),
+              file=sys.stderr)
+        deadline = (t0 + args.serve_for) if args.serve_for > 0 else None
+        while not stop[0]:
+            if deadline is not None and _time.monotonic() >= deadline:
+                break
+            _time.sleep(0.2)
+    finally:
+        proxy.close()
+    m = registry.varz()["metrics"]
+    print(_json.dumps({
+        "served_s": round(_time.monotonic() - t0, 3),
+        "connections": m.get("net_proxy_connections_total", 0),
+        "faults_fired": m.get("net_proxy_faults_fired_total", 0),
+        "forwarded_bytes": m.get("net_proxy_forwarded_bytes_total", 0),
+        "dropped_bytes": m.get("net_proxy_dropped_bytes_total", 0),
+        "fired": proxy.fired,
+    }))
+    return 0
+
+
+def cmd_data_serve(args) -> int:
+    """Run the disaggregated input plane's service on this host
+    (ISSUE 11 tentpole): per connected trainer, the exact
+    ShardedDataset/MultiProcessLoader stage the trainer would run
+    locally, streamed as ready batches.  jax is never imported — input
+    hosts are pure CPU/RAM capacity.
+
+    Under the ``tpucfn launch --input-hosts N`` fan-out everything
+    defaults from the env contract (bind port from TPUCFN_INPUT_PORT,
+    trainer count from TPUCFN_WORKERS_COUNT, heartbeats into
+    TPUCFN_FT_DIR, /metrics on TPUCFN_OBS_PORT); standalone use passes
+    the flags explicitly."""
+    import json as _json
+    import signal as _signal
+    import time as _time
+
+    from tpucfn_torch.data.service import INPUT_PORT_ENV, InputService
+
+    shards = sorted(Path(args.shards).glob("*.tpurec"))
+    if not shards:
+        print(f"error: no *.tpurec shards under {args.shards}",
+              file=sys.stderr)
+        return 2
+    num_trainers = args.num_trainers
+    if num_trainers is None:
+        raw = os.environ.get("TPUCFN_WORKERS_COUNT", "").strip()
+        if not raw:
+            print("error: --num-trainers required outside a `tpucfn "
+                  "launch --input-hosts` fan-out (TPUCFN_WORKERS_COUNT "
+                  "unset)", file=sys.stderr)
+            return 2
+        num_trainers = int(raw)
+    port = args.port
+    if port is None:
+        port = int(os.environ.get(INPUT_PORT_ENV, "0") or 0)
+
+    from tpucfn_torch.obs.registry import MetricRegistry
+    from tpucfn_torch.obs.server import start_obs_server
+    from tpucfn_torch.obs.trace import Tracer
+
+    host_id = int(os.environ.get("TPUCFN_HOST_ID", "0") or 0)
+    registry = MetricRegistry(labels={"role": "input",
+                                      "host": str(host_id)})
+    hb = obs_srv = None
+    # Fleet timeline (ISSUE 20): with a trace dir (flag, or the
+    # launcher's TPUCFN_TRACE_DIR fan-out) every served batch lands an
+    # input_serve span whose (trace_id, span_id, origin) context rides
+    # the batch frame's header — the remote parent of the trainer's
+    # data_wait.  Unset ⇒ Tracer(None), zero wire or file cost.
+    trace_dir = (args.trace_dir
+                 or os.environ.get("TPUCFN_TRACE_DIR", "").strip() or None)
+    tracer = Tracer(trace_dir, host_id=host_id, role="input")
+    service = InputService(
+        shards, num_trainers=num_trainers,
+        batch_size_per_process=args.batch_size, seed=args.seed,
+        num_epochs=args.num_epochs, host=args.host, port=port,
+        queue_batches=args.queue_batches, mp_workers=args.mp_workers,
+        sndbuf_bytes=args.sndbuf_kb * 1024 if args.sndbuf_kb else None,
+        send_deadline_s=args.send_deadline,
+        registry=registry, shuffle=not args.no_shuffle,
+        cache_in_memory=not args.stream,
+        num_workers=args.workers, tracer=tracer)
+    try:
+        service.start()
+        print(f"input service listening on {service.address} "
+              f"({len(shards)} shards, {num_trainers} trainer stream(s))",
+              file=sys.stderr)
+        obs_srv = start_obs_server(registry, port=args.obs_port,
+                                   role="input", host_id=host_id,
+                                   tracer=tracer)
+        if obs_srv is not None:
+            print(f"obs endpoint: {obs_srv.url()}", file=sys.stderr)
+        # Under the ft fan-out an input host is a first-class fleet
+        # member: it beats like any rank, and its death is routed as
+        # input_degraded (trainers fall back to local loading) instead
+        # of a gang incident.
+        ft_dir = os.environ.get("TPUCFN_FT_DIR", "").strip()
+        if ft_dir:
+            from tpucfn_torch.ft.heartbeat import HeartbeatWriter
+
+            hb = HeartbeatWriter(
+                ft_dir, host_id, role="input",
+                interval_s=float(
+                    os.environ.get("TPUCFN_FT_HEARTBEAT_S", "1.0") or 1.0))
+            hb.start()
+
+        def _on_term(signum, frame):
+            # one lock-free store; wait_idle notices and the main
+            # thread runs the real close (a handler must never take
+            # this object's locks — the PR 8 drain lesson)
+            service.request_close()
+            print("SIGTERM: input service closing", file=sys.stderr)
+
+        try:
+            _signal.signal(_signal.SIGTERM, _on_term)
+        except ValueError:
+            pass  # not the main thread (embedded use)
+        t0 = _time.monotonic()
+        service.wait_idle(args.idle_exit if args.idle_exit > 0 else None)
+    finally:
+        service.close()
+        tracer.close()
+        if hb is not None:
+            hb.stop()
+        if obs_srv is not None:
+            obs_srv.close()
+    m = registry.varz()["metrics"]
+    print(_json.dumps({
+        "served_s": round(_time.monotonic() - t0, 3),
+        "batches_streamed": m.get("input_batches_streamed_total", 0),
+        "bytes_streamed": m.get("input_bytes_streamed_total", 0),
+        "connections": m.get("input_connections_total", 0),
+        "stream_errors": m.get("input_stream_errors_total", 0),
+    }))
+    return 0
+
+
+def cmd_compilecache_serve(args) -> int:
+    """Run the fleet compiled-artifact server standalone (ISSUE 13):
+    the input-role-host / host-0 deployment shape, jax-free — the
+    ``tpucfn launch --compile-cache`` coordinator-hosted form is the
+    other.  Serves GET/CLAIM/PUT over the PR 11 framing; SIGTERM (or
+    ``--serve-for``) ends it, printing a stats JSON line."""
+    import json as _json
+    import signal as _signal
+    import time as _time
+
+    from tpucfn_torch.compilecache.service import (ArtifactServer,
+                                             DEFAULT_COMPILE_CACHE_PORT)
+    from tpucfn_torch.compilecache.store import default_store_dir
+
+    from tpucfn_torch.obs.registry import MetricRegistry
+
+    host_id = int(os.environ.get("TPUCFN_HOST_ID", "0") or 0)
+    registry = MetricRegistry(labels={"role": "compilecache",
+                                      "host": str(host_id)})
+    # Fleet timeline (ISSUE 20): artifact_serve spans record the
+    # requesting trainer's compile_fetch context as their remote
+    # parent.  Unset ⇒ Tracer(None), no cost.
+    from tpucfn_torch.obs.trace import Tracer
+
+    trace_dir = (getattr(args, "trace_dir", None)
+                 or os.environ.get("TPUCFN_TRACE_DIR", "").strip() or None)
+    tracer = Tracer(trace_dir, host_id=host_id, role="compilecache")
+    server = ArtifactServer(
+        args.dir or default_store_dir(), host=args.host,
+        port=args.port if args.port is not None
+        else DEFAULT_COMPILE_CACHE_PORT,
+        device_kind=args.device_kind or None,
+        jax_version=args.jax_version or None,
+        registry=registry, tracer=tracer)
+    stop = [False]
+
+    def _on_term(signum, frame):
+        # ONE plain GIL-atomic store (the PR 8 signal lesson — an
+        # Event.set() takes a lock); the main loop does the close.
+        stop[0] = True
+
+    try:
+        _signal.signal(_signal.SIGTERM, _on_term)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    t0 = _time.monotonic()
+    try:
+        server.start()
+        print(f"compile-artifact server listening on {server.address} "
+              f"(store {server.store.dir})", file=sys.stderr)
+        deadline = (t0 + args.serve_for) if args.serve_for > 0 else None
+        while not stop[0]:
+            if deadline is not None and _time.monotonic() >= deadline:
+                break
+            _time.sleep(0.2)
+    finally:
+        server.close()
+        tracer.close()
+    m = registry.varz()["metrics"]
+    print(_json.dumps({
+        "served_s": round(_time.monotonic() - t0, 3),
+        "entries": len(server.store.keys()),
+        "gets": m.get("compilecache_gets_total", 0),
+        "hits": m.get("compilecache_hits_total", 0),
+        "publishes": m.get("compilecache_publishes_total", 0),
+        "claims_granted": m.get("compilecache_claims_granted_total", 0),
+        "handshake_refusals": m.get(
+            "compilecache_handshake_refusals_total", 0),
+    }))
+    return 0
+
+
+def _parse_bytes(s: str) -> int:
+    """'512M', '2G', '100K', or a plain byte count."""
+    s = s.strip()
+    mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}.get(s[-1:].lower())
+    if mult is not None:
+        return int(float(s[:-1]) * mult)
+    return int(s)
+
+
+def cmd_compilecache_gc(args) -> int:
+    """Cap a compile-artifact store at ``--max-bytes`` (ISSUE 14
+    satellite): live entries evict LRU by meta atime (reads touch it),
+    claimed keys are never evicted, racing publishers' orphan payloads
+    and stale tmp files older than ``--orphan-age`` sweep out.  Prints
+    the stats JSON line; jax-free (safe from cron on any host sharing
+    the dir)."""
+    import json as _json
+
+    from tpucfn_torch.compilecache.store import ArtifactStore, default_store_dir
+
+    store = ArtifactStore(args.dir or default_store_dir())
+    try:
+        max_bytes = _parse_bytes(args.max_bytes)
+        if max_bytes < 0:
+            raise ValueError(max_bytes)
+    except ValueError:
+        print(f"error: bad --max-bytes {args.max_bytes!r} "
+              "(use a non-negative N, NK, NM, or NG)", file=sys.stderr)
+        return 2
+    stats = store.gc(max_bytes, orphan_age_s=args.orphan_age)
+    print(_json.dumps({"dir": str(store.dir), "max_bytes": max_bytes,
+                       **stats}))
+    return 0
+
+
+def cmd_compilecache_stats(args) -> int:
+    """Query a running artifact server's stats (entries, live claims,
+    fleet identity) — the operator's is-the-warm-start-plane-working
+    probe."""
+    import json as _json
+
+    from tpucfn_torch.compilecache.service import ArtifactClient
+    from tpucfn_torch.data.service import ServiceError
+
+    try:
+        print(_json.dumps(ArtifactClient(args.addr).stats()))
+    except ServiceError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def _add_launch_parser(sub) -> None:
@@ -873,16 +1300,63 @@ def _add_launch_parser(sub) -> None:
                         "ChaosSpec JSON file (or inline JSON) replayed "
                         "against the coordinator: kill, hang, "
                         "delay_heartbeats, preempt_notice, lose_host, "
-                        "corrupt_ckpt")
+                        "corrupt_ckpt, kill_coordinator, and the net_* "
+                        "gray-failure ops, which land on the --chaos-proxy "
+                        "instances")
+    l.add_argument("--input-hosts", type=int, default=0, metavar="N",
+                   help="disaggregated input plane: the LAST N hosts of "
+                        "the cluster stream batches (--input-cmd, usually "
+                        "`python -m tpucfn_torch.cli data serve ...`) "
+                        "instead of training; trainers get "
+                        "TPUCFN_INPUT_ADDRS and the rendezvous shrinks to "
+                        "the trainer count")
+    l.add_argument("--input-port", type=int, default=0, metavar="BASE",
+                   help="input service base port (input host h binds "
+                        "BASE + h; 0 = the default base, 7641)")
+    l.add_argument("--input-cmd", metavar="CMD",
+                   help="command input hosts run (shlex-split); required "
+                        "with --input-hosts")
+    l.add_argument("--ft-restart-input-hosts", action="store_true",
+                   help="solo-relaunch a dead input host (bounded, budget "
+                        "untouched); default: trainers degrade to local "
+                        "loading")
+    l.add_argument("--compile-cache", action="store_true",
+                   help="fleet warm start: run the artifact server in this "
+                        "process and fan its address out "
+                        "(TPUCFN_COMPILE_CACHE_ADDRS): one host builds each "
+                        "kernel library with nvcc, the rest fetch it")
+    l.add_argument("--compile-cache-dir", metavar="DIR",
+                   help="artifact store directory of the server (default: "
+                        "the cluster's state dir compilecache/)")
+    l.add_argument("--compile-cache-port", type=int, default=0,
+                   metavar="PORT",
+                   help="artifact server bind port (default 7741)")
+    l.add_argument("--compile-cache-advertise", metavar="HOST",
+                   help="address the fleet dials for the artifact server "
+                        "(default: 127.0.0.1 for --transport local, else "
+                        "the coordinator host; the server runs in THIS "
+                        "process)")
+    l.add_argument("--chaos-proxy", metavar="LISTEN:HOST:PORT",
+                   action="append",
+                   help="run a fault-injection TCP proxy in this process: "
+                        "listen on LISTEN, forward to HOST:PORT "
+                        "(repeatable; the targets of net_* chaos ops, "
+                        "indexed by flag order)")
+    l.add_argument("--supervise", action="store_true",
+                   help="wrap the coordinator in a re-exec loop: a crashed "
+                        "coordinator is relaunched and adopts the running "
+                        "fleet via the journal; orphaned rank exit codes "
+                        "are reaped into <ft>/rc/ (needs --ft)")
+    l.add_argument("--supervise-restarts", type=int, default=3, metavar="N",
+                   help="coordinator relaunches allowed before the "
+                        "supervise loop gives up and propagates the rc")
     for flag, dest, plane, item in REFUSED_LAUNCH_FLAGS:
         refused = f"refused: {plane} is not ported (ROADMAP {item})"
         if flag in _REFUSED_SWITCHES:
             l.add_argument(flag, dest=dest, action="store_true",
                            default=None, help=refused)
         else:
-            l.add_argument(flag, dest=dest, metavar="X",
-                           action="append" if flag == "--chaos-proxy"
-                           else "store", help=refused)
+            l.add_argument(flag, dest=dest, metavar="X", help=refused)
     l.add_argument("cmd", nargs=argparse.REMAINDER)
     l.set_defaults(fn=cmd_launch)
 
@@ -910,6 +1384,144 @@ def _add_cluster_parsers(sub) -> None:
     e.set_defaults(fn=cmd_env)
 
     _add_launch_parser(sub)
+
+    da = sub.add_parser(
+        "data", help="input-plane commands (disaggregated batch service)")
+    dasub = da.add_subparsers(dest="data_command", required=True)
+    dsv = dasub.add_parser(
+        "serve",
+        help="stream ready batches to trainer hosts: the input-host "
+             "role of `launch --input-hosts N` (never touches the card)")
+    dsv.add_argument("--shards", required=True, metavar="DIR",
+                     help="directory of *.tpurec shards (must match the "
+                          "trainers' local fallback dataset)")
+    dsv.add_argument("--batch-size", type=int, required=True,
+                     help="per-trainer batch size (handshake-validated)")
+    dsv.add_argument("--num-trainers", type=int, default=None, metavar="T",
+                     help="trainer fleet size (default: "
+                          "TPUCFN_WORKERS_COUNT from the launch fan-out)")
+    dsv.add_argument("--seed", type=int, default=0)
+    dsv.add_argument("--num-epochs", type=int, default=None,
+                     help="epochs per trainer stream (default: unbounded)")
+    dsv.add_argument("--host", default="0.0.0.0",
+                     help="bind address (default all interfaces)")
+    dsv.add_argument("--port", type=int, default=None,
+                     help="bind port (default: TPUCFN_INPUT_PORT from the "
+                          "launch fan-out, else ephemeral)")
+    dsv.add_argument("--queue-batches", type=int, default=4,
+                     help="encoded batches buffered per trainer stream "
+                          "(the memory bound; TCP backpressure beyond it)")
+    dsv.add_argument("--sndbuf-kb", type=int, default=0, metavar="KB",
+                     help="cap the kernel send buffer per stream (makes "
+                          "the per-trainer memory bound exact; 0 = OS "
+                          "auto-tuning, right for high-bandwidth links)")
+    dsv.add_argument("--mp-workers", type=int, default=0, metavar="W",
+                     help="decode across W worker PROCESSES per stream "
+                          "(MultiProcessLoader; 0 = in-process)")
+    dsv.add_argument("--workers", type=int, default=0,
+                     help="transform thread pool per stream "
+                          "(ShardedDataset num_workers; 0 = inline)")
+    dsv.add_argument("--no-shuffle", action="store_true")
+    dsv.add_argument("--stream", action="store_true",
+                     help="constant-memory shard streaming instead of "
+                          "caching decoded examples in RAM")
+    dsv.add_argument("--idle-exit", type=float, default=0.0,
+                     metavar="SECONDS",
+                     help="exit rc 0 after this long with no connected "
+                          "trainer (0 = serve until SIGTERM); the launch "
+                          "fan-out needs this so the coordinator can end "
+                          "the run")
+    dsv.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                     help="serve /metrics /healthz /varz (default: "
+                          "TPUCFN_OBS_PORT from the launch fan-out)")
+    dsv.add_argument("--send-deadline", type=float, default=120.0,
+                     metavar="SECONDS",
+                     help="end-to-end deadline per sent frame: a stalled "
+                          "trainer is dropped (and its producer freed) "
+                          "after this long; must exceed the trainers' "
+                          "worst-case step time (0 = disabled)")
+    dsv.add_argument("--trace-dir", default=None, metavar="DIR",
+                     help="write input_serve trace spans here (default: "
+                          "TPUCFN_TRACE_DIR; unset = tracing off)")
+    dsv.set_defaults(fn=cmd_data_serve)
+
+    cc = sub.add_parser(
+        "compilecache",
+        help="fleet warm-start plane (kernel-library artifact store/server)")
+    ccsub = cc.add_subparsers(dest="compilecache_command", required=True)
+    ccs = ccsub.add_parser(
+        "serve",
+        help="run the artifact server standalone; `launch --compile-cache` "
+             "is the coordinator-hosted form")
+    ccs.add_argument("--dir", metavar="DIR",
+                     help="artifact store directory (default "
+                          "$TPUCFN_COMPILE_CACHE_DIR, else compilecache/ "
+                          "under the port's state dir)")
+    ccs.add_argument("--host", default="0.0.0.0")
+    ccs.add_argument("--port", type=int, default=None,
+                     help="bind port (default 7741)")
+    ccs.add_argument("--device-kind", default="",
+                     help="pin the fleet's card name (default: the first "
+                          "client's handshake pins it)")
+    ccs.add_argument("--toolchain", "--jax-version", dest="jax_version",
+                     default="",
+                     help="pin the fleet's toolchain identity (torch, CUDA "
+                          "runtime, nvcc; the JAX CLI's --jax-version slot)")
+    ccs.add_argument("--serve-for", type=float, default=0.0,
+                     metavar="SECONDS",
+                     help="exit cleanly after this long (0 = until "
+                          "SIGTERM)")
+    ccs.add_argument("--trace-dir", default=None, metavar="DIR",
+                     help="write artifact_serve trace spans here "
+                          "(default: TPUCFN_TRACE_DIR; unset = off)")
+    ccs.set_defaults(fn=cmd_compilecache_serve)
+    ccg = ccsub.add_parser(
+        "gc",
+        help="cap a store dir at --max-bytes: LRU eviction by meta "
+             "atime, claimed keys kept, orphan payloads swept")
+    ccg.add_argument("--dir", metavar="DIR",
+                     help="store dir (default: TPUCFN_COMPILE_CACHE_DIR, "
+                          "else compilecache/ under the port's state dir)")
+    ccg.add_argument("--max-bytes", required=True, metavar="N[KMG]",
+                     help="live-entry byte cap (0 = evict everything "
+                          "unclaimed)")
+    ccg.add_argument("--orphan-age", type=float, default=3600.0,
+                     metavar="SECONDS",
+                     help="age before unreferenced payloads / tmp files "
+                          "are swept (younger may be an in-flight "
+                          "publish)")
+    ccg.set_defaults(fn=cmd_compilecache_gc)
+    cct = ccsub.add_parser(
+        "stats", help="query a running artifact server's stats")
+    cct.add_argument("--addr", required=True, metavar="HOST:PORT")
+    cct.set_defaults(fn=cmd_compilecache_stats)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="network fault injection (gray failures: latency, trickle, "
+             "stall, partition, tear, RST)")
+    chsub = ch.add_subparsers(dest="chaos_command", required=True)
+    cp = chsub.add_parser(
+        "proxy",
+        help="run a deterministic fault-injection TCP proxy in front of "
+             "any fleet plane's port")
+    cp.add_argument("--listen", type=int, default=0, metavar="PORT",
+                    help="port to listen on (0 = ephemeral, printed)")
+    cp.add_argument("--upstream", required=True, metavar="HOST:PORT",
+                    help="where healthy traffic forwards to")
+    cp.add_argument("--host", default="0.0.0.0",
+                    help="bind address (default 0.0.0.0)")
+    cp.add_argument("--spec", metavar="FILE|JSON",
+                    help="NetFaultSchedule JSON: {\"seed\": N, \"faults\": "
+                         "[{\"kind\": \"throttle\", \"at_s\": 5, "
+                         "\"rate_bps\": 1024, \"duration_s\": 30}, ...]}")
+    cp.add_argument("--seed", type=int, default=None,
+                    help="override the schedule's seed (determinism: same "
+                         "seed, same fault timeline)")
+    cp.add_argument("--serve-for", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="exit after this long (0 = until SIGTERM)")
+    cp.set_defaults(fn=cmd_chaos_proxy)
 
     k = sub.add_parser("kill-host", help="fault injection: mark a host dead")
     k.add_argument("--name", required=True)
@@ -1043,6 +1655,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # what --supervise re-executes, also when called in-process
+    args.argv = sys.argv[1:] if argv is None else list(argv)
     if args.backend != "fake":
         return _refuse(f"--backend {args.backend}: only the fake control "
                        "plane is ported to tpucfn_torch; the JAX package's "

@@ -29,12 +29,23 @@ The planes the launcher fans out, wired as the JAX loop wires them:
   a ``torch.profiler`` capture that the loop runs between step
   boundaries, so it holds the training thread's ops).
 * ``--profile``: ``torch.profiler`` around the whole loop.
+* ``TPUCFN_INPUT_ADDRS``: the disaggregated input service.  The batches
+  come from a :class:`~tpucfn_torch.data.service.ResilientBatchStream`
+  (failover across input hosts, then local loading from the exact batch
+  cursor) behind an :class:`~tpucfn_torch.data.service.AdaptivePrefetcher`;
+  each ``data_wait`` span records the serving host's span as its remote
+  parent.  A resumed run asks the service for the batches from its
+  restored step on, as it skips them locally.
+* ``TPUCFN_COMPILE_CACHE_ADDRS`` / ``TPUCFN_COMPILE_CACHE_DIR``: the
+  fleet warm start of the kernel libraries
+  (:mod:`tpucfn_torch.compilecache.kernels`), configured before the
+  first step; a :class:`~tpucfn_torch.obs.profiler.CompileCacheProbe`
+  tells ``TrainerObs`` what the first step paid for them, and each log
+  row carries the cache's counters.
 
-Refuse, never skip: with ``TPUCFN_INPUT_ADDRS`` (the input service) or
-``TPUCFN_COMPILE_CACHE_ADDRS`` (the compile cache) set, or with
-``--profile-server`` (XProf's live attach, which has no PyTorch
-counterpart: ``POST /profile`` captures instead), the loop exits
-non-zero and names what is missing.
+Refuse, never skip: with ``--profile-server`` (XProf's live attach,
+which has no PyTorch counterpart: ``POST /profile`` captures instead)
+the loop exits non-zero and names what is missing.
 """
 
 from __future__ import annotations
@@ -45,11 +56,13 @@ import os
 import time
 from pathlib import Path
 
-# (env var, plane, ROADMAP item) for each plane the loop refuses.
-UNPORTED_PLANES = (
-    ("TPUCFN_INPUT_ADDRS", "the disaggregated input service", "Queue 1 B2"),
-    ("TPUCFN_COMPILE_CACHE_ADDRS", "the fleet compile cache", "Queue 1 B4"),
-)
+# The kernel-library cache's counters each log row carries, when a cache
+# is configured.
+COMPILE_CACHE_COUNTERS = (
+    "compilecache_kernel_dir_hits_total", "compilecache_store_hits_total",
+    "compilecache_fetch_hits_total", "compilecache_compiles_total",
+    "compilecache_client_publishes_total",
+    "compilecache_fetch_failures_total", "compilecache_corrupt_total")
 
 
 def add_cluster_args(p: argparse.ArgumentParser) -> None:
@@ -88,13 +101,8 @@ def add_cluster_args(p: argparse.ArgumentParser) -> None:
 
 
 def refuse_unported_planes(args) -> None:
-    """Exit non-zero, naming the plane and its ROADMAP item, when the env
-    or the flags ask for a plane the port does not have."""
-    for var, plane, item in UNPORTED_PLANES:
-        if os.environ.get(var, "").strip():
-            raise SystemExit(
-                f"{var} is set: {plane} is not ported to tpucfn_torch yet "
-                f"(ROADMAP {item}); refusing to train without it")
+    """Exit non-zero, naming what is missing and its ROADMAP item, when
+    the flags ask for a plane the port does not have."""
     if getattr(args, "profile_server", 0):
         raise SystemExit(
             "--profile-server: XProf's live profiler server has no PyTorch "
@@ -162,6 +170,49 @@ def _clear_checkpoints(run_dir: Path) -> None:
         raise RuntimeError(delete_err)
 
 
+def served_or_local_batches(ds, start: int = 0, *, on_degrade=None,
+                            env=None):
+    """The loop's batches from batch ``start`` on (the step a resumed run
+    restored), for ``ds.batches(None)``: without ``TPUCFN_INPUT_ADDRS``
+    the local loader, else the input service's stream as the JAX
+    package's ``service_or_local_batches`` builds it (a
+    ``ResilientBatchStream`` that degrades to ``ds`` at the exact cursor,
+    behind an ``AdaptivePrefetcher``).  The stream's cursor starts at
+    ``start``, so the service streams and the local fallback resumes from
+    the same batch.  ``on_degrade(reason, cursor)`` is told when, and at
+    which batch, the stream fell back to local loading."""
+    from tpucfn_torch.data.service import (INPUT_OP_DEADLINE_ENV,
+                                           AdaptivePrefetcher,
+                                           ResilientBatchStream,
+                                           input_addrs_from_env)
+
+    e = os.environ if env is None else env
+    addrs = input_addrs_from_env(e)
+    if not addrs:
+        return itertools.islice(ds.batches(None), start, None)
+
+    def local_factory(cursor):
+        return itertools.islice(ds.batches(None), cursor, None)
+
+    def degraded(reason):
+        if on_degrade is not None:
+            on_degrade(reason, stream.cursor)
+
+    stream = ResilientBatchStream(
+        addrs, ds.pi, local_factory=local_factory, process_count=ds.pc,
+        batch_size=ds.batch, seed=ds.seed, num_epochs=None,
+        on_degrade=degraded,
+        rcvbuf_bytes=int(e.get("TPUCFN_INPUT_RCVBUF", "0") or 0) or None,
+        op_deadline_s=float(e.get(INPUT_OP_DEADLINE_ENV, "0") or 0) or None,
+        mp_workers=0)  # the fallback IS ds.batches(): plain loader order
+    # Before the first batch: the first connection asks for the stream
+    # from here, and a degrade before it resumes the local loader here.
+    # (A resumed incarnation has no boot-skew retry window: a refused
+    # first connect degrades at once, to the same batches.)
+    stream.cursor = int(start)
+    return AdaptivePrefetcher(stream)
+
+
 def _synchronize(device) -> None:
     """Wait for the device: the step time is the step's, not its launch's."""
     import torch
@@ -180,7 +231,8 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
     from tpucfn_torch.obs.metrics import (MetricLogger, StepTimer,
                                           register_device_gauges,
                                           register_kernel_gauges)
-    from tpucfn_torch.obs.profiler import ProfileCapture
+    from tpucfn_torch.compilecache import kernels as kernel_cache
+    from tpucfn_torch.obs.profiler import CompileCacheProbe, ProfileCapture
     from tpucfn_torch.obs.registry import set_default_labels
     from tpucfn_torch.obs.server import start_obs_server
     from tpucfn_torch.obs.trace import Tracer
@@ -209,7 +261,7 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
         if n:
             logger.log(step, {f"eval_{k}": v / n for k, v in sums.items()})
 
-    logger = tracer = obs_srv = hb = None
+    logger = tracer = obs_srv = hb = kcache = None
     try:
         logger = MetricLogger(run_dir / "logs", stdout_every=args.log_every)
         registry = set_default_labels(host=str(host), role="trainer")
@@ -225,7 +277,20 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
         register_device_gauges(registry, trainer.device)
         register_kernel_gauges(registry)
         profiler = ProfileCapture(run_dir / "profile", tracer=tracer)
-        obs = TrainerObs(registry, tracer, flight=flight)
+        # Fleet warm start: with TPUCFN_COMPILE_CACHE_ADDRS (or a store
+        # dir pinned) each kernel library the steps load comes from the
+        # kernel directory, the artifact store, the fleet, or one nvcc
+        # build that is then published; the probe tells TrainerObs what
+        # the first step paid.  Unset: None, the kernels build as ever.
+        # The CPU's plain paths load no library.
+        compile_probe = CompileCacheProbe()
+        if trainer.device.type == "cuda":
+            from tpucfn_torch.compilecache import configure_from_env
+
+            kcache = configure_from_env(tracer=tracer, registry=registry,
+                                        probe=compile_probe)
+        obs = TrainerObs(registry, tracer, flight=flight,
+                         compile_probe=compile_probe)
         obs_srv = start_obs_server(
             registry, role="trainer", host_id=host,
             health_fn=lambda: (True, {"step": obs.last_step.value}),
@@ -247,8 +312,11 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
         t_start = time.perf_counter()
         return _train_loop_body(
             trainer, ds, mesh, args, items_per_step, extra_axes, run_eval,
-            logger, timer, obs, t_start, run_dir, tracer, hb, profiler)
+            logger, timer, obs, t_start, run_dir, tracer, hb, profiler,
+            kcache)
     finally:
+        if kcache is not None and kernel_cache.installed() is kcache:
+            kernel_cache.install(None)
         if hb is not None:
             hb.stop()
         if logger is not None:
@@ -259,9 +327,19 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
             obs_srv.close()
 
 
+def _compile_cache_counters(kcache, build) -> dict:
+    """The kernel-library cache's counters so far and the nvcc processes
+    this process started, for a log row (empty without a cache)."""
+    if kcache is None:
+        return {}
+    values = kcache.client.registry.varz()["metrics"]
+    return {**{k: values.get(k, 0.0) for k in COMPILE_CACHE_COUNTERS},
+            "kernel_nvcc_runs": build.nvcc_runs}
+
+
 def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
                      run_eval, logger, timer, obs, t_start, run_dir, tracer,
-                     hb=None, profiler=None):
+                     hb=None, profiler=None, kcache=None):
     import contextlib
 
     import torch
@@ -269,6 +347,7 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
     from tpucfn_torch.ckpt import CheckpointManager
     from tpucfn_torch.data import prefetch_to_device
     from tpucfn_torch.ft import RESTORE_FAILED_RC, drain_requested
+    from tpucfn_torch.kernels import _build
     from tpucfn_torch.launch import process_count, process_index
     from tpucfn_torch.obs.goodput import device_peak_flops
     from tpucfn_torch.obs.metrics import kernel_launch_counts
@@ -297,9 +376,24 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
         halt = min(total, args.stop_after) if args.stop_after else total
         metrics = {}
         step = state.step
-        # A resumed run skips the batches its restored steps consumed.
-        stream = itertools.islice(ds.batches(None), step, None)
+        # A resumed run skips the batches its restored steps consumed,
+        # served or loaded here.  With input hosts fanned out
+        # (TPUCFN_INPUT_ADDRS) the batches are the service's until no
+        # host answers, then this host's own from the exact cursor.
+        degraded = {}
+
+        def on_degrade(reason, cursor):
+            degraded.update(reason=reason, cursor=cursor, wall=time.time())
+            print(f"input plane degraded to local loading at batch "
+                  f"{cursor}: {reason}", flush=True)
+
+        stream = served_or_local_batches(ds, step, on_degrade=on_degrade)
         batches = iter(prefetch_to_device(stream, device))
+        # The stream queues one wire context per batch it yields;
+        # popping one per batch consumed keeps the pairing exact through
+        # the prefetch (a local loader has none: every wait is local).
+        pop_link = getattr(stream, "pop_link", None)
+        degrade_logged = False
         _end = object()
         with contextlib.ExitStack() as planes:
             planes.enter_context(profile_steps(run_dir / "profile",
@@ -317,7 +411,9 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
                 t_wait = time.monotonic() - t0_wait
                 if batch is _end or step >= halt:
                     break
-                obs.record_data_wait(step + 1, t0_wait, t_wait)
+                obs.record_data_wait(
+                    step + 1, t0_wait, t_wait,
+                    link=pop_link() if pop_link is not None else None)
                 with obs.step(step + 1):
                     state, metrics = trainer.step(state, batch)
                     step = state.step
@@ -350,7 +446,17 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
                         "step_time": timer._last or 0.0,
                         "data_wait_time": t_wait,
                         **{k: n for k, n in kernel_launch_counts().items()
-                           if n}})
+                           if n},
+                        **_compile_cache_counters(kcache, _build)})
+                if degraded and not degrade_logged:
+                    # logged by this thread (the callback runs on the
+                    # prefetch thread): when, and from which batch on,
+                    # the batches are this host's own
+                    logger.log(step, {"input_degraded_cursor":
+                                      degraded["cursor"],
+                                      "input_degraded_wall":
+                                      degraded["wall"]})
+                    degrade_logged = True
                 if args.eval_every and step % args.eval_every == 0:
                     run_eval(state, step)
                 # CheckpointManager gates on save_interval_steps; record
@@ -366,6 +472,14 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
                           f"{step}", flush=True)
                     break
         batches.close()  # stops the prefetch thread
+        # A step-target or drain exit leaves a service stream live (its
+        # socket, the input host's producer, buffered batches): close it.
+        close_stream = getattr(stream, "close", None)
+        if close_stream is not None:
+            try:
+                close_stream()
+            except ValueError:
+                pass  # a local generator still running in the prefetch thread
         run_eval(state, state.step)
         t0_ckpt = time.monotonic()
         if ckpt.save(state.step, state, force=True):

@@ -7,6 +7,14 @@ the shared headers ``csrc/*.cuh`` and the flags: an edited source
 rebuilds, an unchanged one loads what is there.  Libraries are loaded
 with ``ctypes``.  Nothing here runs at import time — the CPU tests import
 every module of the package.
+
+With a kernel-library cache installed (the fleet warm start,
+:mod:`tpucfn_torch.compilecache.kernels`, which the training loop and the
+serve CLI configure from ``TPUCFN_COMPILE_CACHE_ADDRS`` /
+``TPUCFN_COMPILE_CACHE_DIR``), :func:`load` takes a library that is not in
+the directory yet from the artifact store or the fleet before it builds
+one.  Without one it builds and loads as above.  Each library has a lock
+of its own: a fetch or a build never holds up the loading of another.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
+nvcc_runs = 0  # nvcc processes started in this process
 
 
 def _nvcc() -> str:
@@ -52,6 +62,7 @@ def build(*names: str) -> dict[str, str]:
     process per source, all started together.  Returns each compiler's
     output (register and shared-memory use from ``-Xptxas -v``); raises
     if any build fails."""
+    global nvcc_runs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -63,6 +74,8 @@ def build(*names: str) -> dict[str, str]:
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
+        with _lock:
+            nvcc_runs += 1
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
@@ -76,10 +89,20 @@ def build(*names: str) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``: through the installed
+    kernel-library cache when there is one, else built first if needed."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
-            build(name)
-            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+            from tpucfn_torch.compilecache.kernels import installed
+
+            cache = installed()
+            if cache is not None:
+                lib = cache.load(name)
+            else:
+                build(name)
+                lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
         return lib

@@ -11,6 +11,10 @@ defaults:
   (:func:`tpucfn_torch.kernels.flash_autotune.lookup_speedup`):
   tuned-and-winning (>= 1.05) -> flash, tuned-and-losing -> dense,
   never measured -> flash only at ``untuned_flash_min_s()`` and beyond.
+  A head dim or dtype the kernels are not built for (``HEAD_DIMS``,
+  ``DTYPES`` of :mod:`tpucfn_torch.kernels.flash_attention`; D = 40 and
+  fp16, say) takes the dense path, which the JAX package runs those
+  shapes on as well.
 * ``flash_threshold()`` — ``TPUCFN_FLASH_MIN_S`` (default 0).
 * ``untuned_flash_min_s()`` — ``TPUCFN_FLASH_UNTUNED_MIN_S`` (default 0).
 
@@ -56,6 +60,16 @@ def untuned_flash_min_s() -> int:
 
 def _on_card(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
+
+
+def _kernels_take(d, dtype) -> bool:
+    """Whether the kernels are built for this head dim and dtype
+    (``HEAD_DIMS`` and ``DTYPES`` of the kernels' module); a call site
+    that passes neither keeps the length rule alone."""
+    from tpucfn_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+
+    return ((d is None or int(d) in HEAD_DIMS)
+            and (dtype is None or dtype in DTYPES))
 
 
 _warned_untuned_kinds: set[str] = set()
@@ -107,11 +121,14 @@ def _evidence_says_flash(s: int, d, dtype, causal: bool) -> bool:
 def should_use_flash(s: int, *, causal: bool = True, mask=None,
                      d: int | None = None, dtype=None, device=None) -> bool:
     """One policy for every dispatch site.  ``device`` is where the
-    tensors live: anything but a CUDA device gets dense.  Pass ``d`` and
+    tensors live: anything but a CUDA device gets dense, as does a head
+    dim or dtype the kernels are not built for.  Pass ``d`` and
     ``dtype`` so the decision can consult the measured evidence."""
     if mask is not None or not causal:
         return False  # the kernels mask causally or by segment only
     if not _on_card(device) or int(s) < flash_threshold():
+        return False
+    if not _kernels_take(d, dtype):
         return False
     return _evidence_says_flash(s, d, dtype, causal=True)
 
@@ -125,6 +142,8 @@ def should_use_flash_full(s_q: int, s_kv: int, *, mask=None,
         return False
     t = flash_threshold()
     if not _on_card(device) or int(s_q) < t or int(s_kv) < t:
+        return False
+    if not _kernels_take(d, dtype):
         return False
     return _evidence_says_flash(s_q, d, dtype, causal=False)
 

@@ -11,10 +11,14 @@ capture's numbered directory, or ``trace-<pid>.json`` for
 are copies held equal to the JAX package's by
 ``tests/test_torch_isolation.py``.
 
+:class:`CompileCacheProbe` is the port's own, on the reference's protocol
+(``mark``, ``outcome``, ``hit``, ``rearm``): what the first step paid for
+its kernel libraries.
+
 Not ported: ``start_profiler_server`` (XProf's live attach has no
 PyTorch counterpart: a capture is asked for with ``POST /profile``
-instead), and ``enable_compile_cache`` with ``CompileCacheProbe``, which
-go with the compile cache (ROADMAP Queue 1 B4).
+instead), and ``enable_compile_cache`` (there is no XLA compile cache;
+the kernel directory is the port's persistent cache).
 """
 
 from __future__ import annotations
@@ -224,6 +228,77 @@ class ProfileCapture:
             error = error or e
         req.error = error
         req.done.set()
+
+
+class CompileCacheProbe:
+    """Did the first step's kernel libraries come from a cache?
+
+    The counterpart of the reference's probe, which watches jax's
+    persistent compile cache: here the persistent cache is the kernel
+    directory (``kernels/_build/``), and a step loads each library it
+    has not loaded yet at its first launch.  Over the first step
+    (:meth:`rearm` at its entry, :meth:`outcome` after):
+
+    * explicit marks from the kernel-library cache
+      (:mod:`tpucfn_torch.compilecache.kernels`) win: ``"compile"``
+      (``nvcc`` ran) over ``"fetch"`` (a fleet peer's library) over
+      ``"store"`` (the kernel directory or the local artifact store),
+      since a step that built one library paid a build whatever the
+      others cost;
+    * without marks: new libraries appeared in the directory, so
+      ``nvcc`` ran: **miss**; libraries were loaded and none appeared:
+      **hit**; neither (nothing loaded, e.g. on the CPU): unknown.
+
+    :meth:`outcome` is the goodput split: ``"fetch"`` →
+    ``compile_fetched``, ``"hit"`` → ``compile_cached``, ``"miss"`` or
+    None → ``compile``."""
+
+    def __init__(self, cache_dir: str | Path | None = None):
+        if cache_dir is None:
+            from tpucfn_torch.kernels._build import BUILD_DIR as cache_dir
+        self.cache_dir = Path(cache_dir)
+        self._marks: set[str] = set()
+        self._before = self._snapshot()
+
+    def _snapshot(self) -> tuple[int, int]:
+        """(libraries in the directory, libraries loaded by this
+        process): builds move the first, loads the second."""
+        from tpucfn_torch.kernels import _build
+
+        try:
+            count = sum(1 for _ in self.cache_dir.glob("*.so"))
+        except OSError:
+            count = 0
+        return count, len(_build._loaded)
+
+    def rearm(self) -> None:
+        """Re-snapshot and clear the marks (``TrainerObs`` calls this at
+        the first step's entry)."""
+        self._before = self._snapshot()
+        self._marks = set()
+
+    def mark(self, outcome: str) -> None:
+        """One library's verdict from the kernel-library cache:
+        ``"compile"``, ``"fetch"`` or ``"store"``."""
+        self._marks.add(outcome)
+
+    def hit(self) -> bool | None:
+        out = self.outcome()
+        return None if out is None else out in ("fetch", "hit")
+
+    def outcome(self) -> str | None:
+        if "compile" in self._marks:
+            return "miss"
+        if "fetch" in self._marks:
+            return "fetch"
+        if "store" in self._marks:
+            return "hit"
+        count, loaded = self._snapshot()
+        if count > self._before[0]:
+            return "miss"
+        if loaded > self._before[1]:
+            return "hit"
+        return None
 
 
 @contextlib.contextmanager

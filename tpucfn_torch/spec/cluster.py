@@ -7,8 +7,8 @@ plane and ``launch`` fans the job out over its hosts.
 held equal to the JAX package's by ``tests/test_torch_isolation.py``.
 
 The port's own: the registry names NVIDIA machines (``h100-1``: one host
-with one H100) and the fake ``cpu-1`` (one CPU rank, for tests), not TPU
-slices; and :class:`ClusterSpec` defaults to ``h100-1`` with no TPU
+with one H100; ``h100-2``: two such hosts) and the fake ``cpu-1`` (one CPU
+rank, for tests), not TPU slices; and :class:`ClusterSpec` defaults to ``h100-1`` with no TPU
 runtime image or zone.  A host with more than one card waits for one
 rank per card under a per-host parent (ROADMAP A1): the launcher's
 ranks refuse ``TPUCFN_WORKER_CHIP_COUNT`` > 1 today.
@@ -49,6 +49,10 @@ ACCELERATOR_TYPES: dict[str, AcceleratorType] = {
     t.name: t
     for t in [
         _sku("h100-1", 1, 1, (1,)),
+        # Two hosts of one card each, as the reference's multi-host
+        # entries are: `launch --input-hosts 1` keeps one trainer and one
+        # input host (on one machine, LocalTransport runs both).
+        _sku("h100-2", 2, 2, (2,)),
         # Fake/test platform: one CPU rank on one host.
         _sku("cpu-1", 1, 1, (1,)),
     ]
