@@ -186,10 +186,39 @@ Phases, each printed as one JSON line:
    launches.  Printed: time_to_first_step cold and warm, the build
    seconds against the fetch seconds, data wait served and local, the
    degrade latency and batch, the coordinator's downtime.
+15. ``train_unet_sd15``: the port's SD-1.5 example
+   (``tpucfn_torch/examples/sd15_unet.py``) through its ``main(argv)``:
+   ``UNetConfig.sd15()`` at 64x64x4 latents, a 77 x 768 context, batch
+   2, fp32 params, EMA 0.9999, 6 steps on one repeated batch.  Gates:
+   finite losses; every step exactly 10 K1, 10 K2, 10 K3 and 10 Delta
+   launches, all on ``sm90`` and all at head dim 40 (the five transformer
+   blocks of the 64x64 stage, a self- and a cross-attention each; none at
+   80 or 160, which run dense); peak memory under 80 GB; at the same
+   params (the output convolution drawn small), batch, t and noise, the
+   loss within 0.02 and every gradient at cosine >= 0.99 of the plain
+   attention path.  Printed: step time, images/s, a profiled step's
+   device time by kernel and by class (convolution, flash attention,
+   matmul, norm, optimizer).  Then the tiny fp32 UNet at 16x16, kernel
+   path against plain path over 6 AdamW steps: losses within 1e-4,
+   every K1, K2 and K3 launch on ``mma``, at head dims 16 and 32.
+16. ``train_bert_base``: the port's BERT example
+   (``tpucfn_torch/examples/bert_base.py``): ``BertConfig.base()``, seq
+   128, batch 32, 10 steps on one repeated batch.  Gates: finite losses,
+   the last below the first, and no K1, K2, K3 or Delta launch (its
+   masked attention is dense, as in the JAX package).  Printed: step
+   time, tokens/s, peak memory.
 
-Then a ``{"kernels": [...]}`` line (one entry per kernel variant, each
-launched on a path above, and the old fma kernels of K1, K2 and K3,
-which no path reaches, with their times from the turns) and, last, ``{"ok": true, "device": {...}}``.
+The ``kernel`` and ``kernel_bwd`` phases also hold the head dims 32 and
+40 (``_head_dim_cases``): the UNet's 64x64 self- and cross-attention
+(B = 2, 4096 queries over 4096 and 77 keys, 8 heads of 40) on ``sm90``,
+D = 32 and 40 with causality, offsets and GQA on ``sm90``, fp32 at both
+on ``mma``, a GQA group of 3 at D = 40 (bf16 ``mma``) and a bf16 call of
+16 rows at D = 40, which lands on ``mma``.
+
+Then a ``{"kernels": [...]}`` line (one entry per kernel variant with
+the head dims it is built for, each launched on a path above, and the
+old fma kernels of K1, K2 and K3, which no path reaches, with their
+times from the turns) and, last, ``{"ok": true, "device": {...}}``.
 ``--phases device,build,kernel`` (any subset) gives a partial run that
 prints no result line.  Any failed phase exits non-zero before that
 line.  Without a CUDA device, or without the package beside it, the
@@ -211,7 +240,8 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "serve_spec_llama3_1b", "serve_router_llama3_1b",
           "serve_cli_llama3_1b", "train_llama3_1b", "train_tiny_fp32",
-          "example_llama3_1b", "ft_llama3_1b", "planes_llama3_1b")
+          "example_llama3_1b", "ft_llama3_1b", "planes_llama3_1b",
+          "train_unet_sd15", "train_bert_base")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -455,7 +485,41 @@ def _kernel_cases(torch):
         ("bf16_gqa3", dict(b=2, h=6, hkv=2, d=64, sq=64, sk=128, dtype=bf,
                            q_offset=[0, 32])),
     ]
+    for label, kw, _ in _head_dim_cases(torch):
+        kw = dict(kw)
+        kw["q_offset"] = [kw.get("q_offset", 0)] * kw["b"]
+        cases.append((label, kw))
     return cases
+
+
+def _head_dim_cases(torch):
+    """The head dims 32 and 40 (D = 40 on a zero-padded 64-column tile in
+    sm90, a 48-column one in bf16 mma): the SD-1.5 UNet's 64x64 stage
+    (B = 2, 4096 positions, 8 heads of 40; the self-attention and the
+    cross-attention over the 77-token context), D = 32 in bf16 with
+    causality, offsets and GQA, D = 40 likewise, fp32 at both on mma, a
+    GQA group of 3 at D = 40 (bf16 mma), and, for K1 only, a bf16 call of
+    16 rows at D = 40, which the decode variant lacks (mma).  Each
+    entry: (label, kwargs, forward only)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("unet_self_d40", dict(b=2, h=8, hkv=8, d=40, sq=4096, sk=4096,
+                               dtype=bf, causal=False), False),
+        ("unet_cross_d40", dict(b=2, h=8, hkv=8, d=40, sq=4096, sk=77,
+                                dtype=bf, causal=False), False),
+        ("bf16_d32_gqa2_ragged", dict(b=2, h=8, hkv=4, d=32, sq=200, sk=300,
+                                      dtype=bf, q_offset=64), False),
+        ("bf16_d40_gqa2_ragged", dict(b=2, h=8, hkv=4, d=40, sq=200, sk=300,
+                                      dtype=bf, q_offset=64), False),
+        ("fp32_d32_gqa2", dict(b=2, h=4, hkv=2, d=32, sq=64, sk=96,
+                               dtype=f32, q_offset=32), False),
+        ("fp32_d40_cross", dict(b=2, h=8, hkv=8, d=40, sq=256, sk=77,
+                                dtype=f32, causal=False), False),
+        ("bf16_d40_gqa3", dict(b=2, h=6, hkv=2, d=40, sq=64, sk=128,
+                               dtype=bf, q_offset=32), False),
+        ("bf16_d40_16_rows", dict(b=2, h=8, hkv=8, d=40, sq=16, sk=77,
+                                  dtype=bf, causal=False), True),
+    ]
 
 
 def _in_turns(timer, call, attr, values):
@@ -516,7 +580,7 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
     torch.cuda.synchronize()
     (variant,) = [k for k, n in fa.flash_fwd.launches_by_variant.items()
                   if n != before[k]]
-    assert variant == fa.fwd_variant(dtype, sq, h, hkv), variant
+    assert variant == fa.fwd_variant(dtype, sq, h, hkv, d), variant
     ro, rlse = plain()
     rlse = rlse.transpose(1, 2)
     tol = TOL[str(dtype)]
@@ -550,9 +614,10 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=lib_mask, is_causal=plain_causal)
 
-    ms = timer(kernel)
-    plain_ms = timer(plain)
-    library_ms = timer(library)
+    iters = 10 if sq * sk > 1 << 20 else 30  # as the backward's cases
+    ms = timer(kernel, iters=iters)
+    plain_ms = timer(plain, iters=iters)
+    library_ms = timer(library, iters=iters)
     host_us = _host_us(torch, kernel)
     esize = torch.finfo(dtype).bits // 8
     keys_needed = live.any(1).sum(-1)  # (B,) keys any query row of b sees
@@ -562,7 +627,7 @@ def _one_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset,
               + (b * (sq + sk) * 4 if segments else 0))
     flops = 4 * d * h * int(live.sum())  # QK^T and PV, 2 flops per MAC
     beside = {}
-    if variant == "mma":
+    if variant == "mma" and d in fa.VARIANT_HEAD_DIMS["fma"]:
         # The old fma kernel (on no path now) beside mma, in turns, on
         # these inputs, held to the same tolerance; its bound is taken
         # against the FMA units' rate.
@@ -697,7 +762,7 @@ def _fwd_mma_plans(torch, timer):
     for label, kw in _kernel_cases(torch):
         b, sq, h, hkv, d, sk, dtype = (kw[k] for k in (
             "b", "sq", "h", "hkv", "d", "sk", "dtype"))
-        if fa.fwd_variant(dtype, sq, h, hkv) != "mma":
+        if fa.fwd_variant(dtype, sq, h, hkv, d) != "mma":
             continue
         g = torch.Generator("cuda").manual_seed(len(label))
         q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
@@ -841,7 +906,8 @@ def _bwd_cases(torch):
         ("fp32_gqa3_segments_empty_rows", dict(
             b=2, h=6, hkv=2, d=64, sq=128, sk=128, dtype=f32, k_offset=40,
             segments=True)),
-    ]
+    ] + [(label, kw) for label, kw, fwd_only in _head_dim_cases(torch)
+         if not fwd_only]
 
 
 def _bwd_errs(pairs, dtype):
@@ -983,7 +1049,7 @@ def _bwd_case(torch, timer, label, b, h, hkv, d, sq, sk, dtype, q_offset=0,
     # beside mma in turns on these inputs, held to the same tolerance
     # (bound against the FMA units' rate).
     for key, call, names in (("dq", dq, ("dq",)), ("dkv", dkv, ("dk", "dv"))):
-        if variants[key] != "mma":
+        if variants[key] != "mma" or d not in fa.VARIANT_HEAD_DIMS["fma"]:
             continue
         refs = ref[:1] if key == "dq" else ref[1:]
         times, outs = _in_turns(timer, call, f"{key}_variant",
@@ -1114,12 +1180,14 @@ def _teacher_forced_logits(torch, model, prompt, out):
         return model.logits(hidden[0, len(prompt) - 1:])
 
 
-def _profile(torch, fn, steps, kernel=None):
+def _profile(torch, fn, steps, kernel=None, classes=None):
     """Host wall time and device kernel time per call of ``fn`` over a
     short profiled window (torch.profiler with CUDA activity); the device
     busy share is kernel time over wall time (one stream, no overlap).
     ``kernel``: a name whose kernels' device ms per call is reported
-    apart."""
+    apart.  ``classes``: name -> substrings of kernel names; each class's
+    device ms per call and share of the device time (first match wins,
+    the rest is "other")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1142,6 +1210,16 @@ def _profile(torch, fn, steps, kernel=None):
     named = {} if kernel is None else {
         f"{kernel}_device_ms": sum(r.self_device_time_total for r in kernels
                                    if kernel in r.key) / 1e3 / steps}
+    if classes and kernels:
+        by = dict.fromkeys([*classes, "other"], 0.0)
+        for r in kernels:
+            key = r.key.lower()
+            cls = next((c for c, subs in classes.items()
+                        if any(x in key for x in subs)), "other")
+            by[cls] += r.self_device_time_total / 1e3 / steps
+        named["device_ms_by_class"] = by
+        named["device_share_by_class"] = {c: ms / device_ms
+                                          for c, ms in by.items()}
     return {**named, "wall_ms": wall_ms,
             "device_ms": device_ms if kernels else "not measured",
             "device_busy_share": device_ms / wall_ms if kernels else None,
@@ -1952,12 +2030,22 @@ def _launch_counts():
             "k3_sm90": k3["sm90"], "k3_mma": k3["mma"], "k3_fma": k3["fma"]}
 
 
+def _launches_by_head_dim():
+    """Launches of K1, K2, K3 and Delta by head dim."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    return {k: dict(f.launches_by_head_dim) for k, f in (
+        ("k1", fa.flash_fwd), ("k2", fa.flash_bwd_dq),
+        ("k3", fa.flash_bwd_dkv), ("delta", fa.flash_bwd_delta))}
+
+
 def _zero_launch_counts():
     from tpucfn_torch.kernels import flash_attention as fa
 
     for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
               fa.flash_bwd_delta):
         f.launches = 0
+        f.launches_by_head_dim = {}
     for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
 
@@ -1997,7 +2085,13 @@ def _grad_parity(torch, cfg, params, batch, chunk_size, z_loss):
         loss, _ = loss_fn(params, {}, batch, None)
         out.append((loss.item(), torch.autograd.grad(
             loss, [params[n] for n in names])))
-    (k_loss, k_grads), (p_loss, p_grads) = out
+    return _parity_row(names, *out)
+
+
+def _parity_row(names, kernel, plain):
+    """The kernel path's (loss, grads) against the plain path's: the loss
+    difference and each gradient's cosine similarity, the worst named."""
+    (k_loss, k_grads), (p_loss, p_grads) = kernel, plain
     cosines = {}
     for n, a, b in zip(names, k_grads, p_grads):
         a, b = a.double().flatten(), b.double().flatten()
@@ -2008,7 +2102,8 @@ def _grad_parity(torch, cfg, params, batch, chunk_size, z_loss):
             "loss_abs_diff": abs(k_loss - p_loss),
             "loss_tol": TRAIN_LOSS_TOL_BF16,
             "grad_cosine_min": cosines[worst], "grad_cosine_min_at": worst,
-            "grad_cosine_tol": GRAD_COSINE_MIN, "tensors": len(cosines)}
+            "grad_cosine_tol": GRAD_COSINE_MIN, "tensors": len(cosines),
+            "zero_grads": sum(1 for g in k_grads if not g.any())}
 
 
 def phase_train_llama3_1b(results):
@@ -2172,16 +2267,16 @@ class _WaitForSaveBefore:
         self.cls.save = self.real
 
 
-def _run_example(argv, per_step=None):
-    """The port's example through its ``main(argv)``; its stdout is kept
-    (and returned) and each ``Trainer.step``'s launches are appended to
-    ``per_step``."""
+def _run_example(argv, per_step=None, example="llama3_8b_fsdp"):
+    """The port's example (``tpucfn_torch/examples/<example>.py``) through
+    its ``main(argv)``; its stdout is kept (and returned) and each
+    ``Trainer.step``'s launches are appended to ``per_step``."""
     import atexit
     import contextlib
+    import importlib
     import io
     import signal
 
-    from tpucfn_torch.examples import llama3_8b_fsdp as ex
     from tpucfn_torch.obs.flight import FlightRecorder
     from tpucfn_torch.train import trainer as tr
 
@@ -2205,6 +2300,7 @@ def _run_example(argv, per_step=None):
         armed.append((rec, signal.getsignal(signal.SIGTERM)))
         return real_install(rec, d, *a, **kw)
 
+    ex = importlib.import_module(f"tpucfn_torch.examples.{example}")
     out = io.StringIO()
     tr.Trainer.step = counted
     FlightRecorder.install_dump_handlers = install
@@ -3319,6 +3415,244 @@ def phase_planes_llama3_1b(results):
     return out
 
 
+# ---- phases 15 and 16: the SD-1.5 UNet and BERT-base ----------------------
+# The UNet's attention per training step, no remat: each of the five
+# transformer blocks of the 64x64 stage (two down, three up) runs a self-
+# and a cross-attention at head dim 40 on the kernels, one K1, K2, K3 and
+# Delta each; the 32x32 and 16x16 stages (80, 160) run dense.
+UNET_LAUNCHES_PER_STEP = 10
+UNET_STEPS = 6
+QUIET_FROM_STEP = 4  # the first step with no checkpoint write in flight
+UNET_CLASSES = {"flash attention": ("flash_",),
+                "convolution": ("conv", "fprop", "dgrad", "wgrad",
+                                "implicit_gemm", "winograd", "nchwtonhwc",
+                                "nhwctonchw"),
+                "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
+                "norm": ("norm", "welford"),
+                "optimizer": ("foreach", "multi_tensor", "adam")}
+BERT_STEPS = 10
+
+
+def _unet_parity(torch, cfg, params, batch, t, noise):
+    """Loss and every parameter's gradient through the kernels and through
+    the plain attention op, at the same params, batch, t and noise."""
+    from tpucfn_torch.models.unet import UNet, ddpm_loss_from
+    from tpucfn_torch.ops.attention import dot_product_attention
+
+    def plain(q, k, v):
+        return dot_product_attention(q, k, v, causal=False)
+
+    names = list(params)
+    out = []
+    for attention_fn in (None, plain):
+        model = UNet.from_state_dict(cfg, params, trainable=True,
+                                     attention_fn=attention_fn)
+        loss = ddpm_loss_from(model, batch, t, noise)
+        out.append((loss.item(), torch.autograd.grad(
+            loss, [params[n] for n in names])))
+        del model, loss
+        torch.cuda.empty_cache()
+    return _parity_row(names, *out)
+
+
+def _unet_tiny_fp32(torch):
+    """The tiny fp32 UNet at 16x16, the kernel path against the plain
+    path over a few AdamW steps on one batch: every K1, K2 and K3 launch
+    on mma, at head dims 16 (the 16x16 stage) and 32 (the middle block)."""
+    import numpy as np
+
+    from tpucfn_torch.data import synthetic_latents
+    from tpucfn_torch.models.unet import (UNet, UNetConfig, ddpm_loss,
+                                          init_unet_params)
+    from tpucfn_torch.ops.attention import dot_product_attention
+    from tpucfn_torch.train import Trainer, adamw
+
+    cfg = UNetConfig.tiny()
+    ex = list(synthetic_latents(4, hw=16, ctx_len=8, ctx_dim=cfg.context_dim))
+    batch = {k: torch.as_tensor(np.stack([e[k] for e in ex]), device="cuda")
+             for k in ex[0]}
+    runs = {}
+    for name, attention_fn in (("kernel", None), ("plain", lambda q, k, v:
+                               dot_product_attention(q, k, v, causal=False))):
+        def loss_fn(params, mstate, b, g, attention_fn=attention_fn):
+            model = UNet.from_state_dict(cfg, params, trainable=True,
+                                         attention_fn=attention_fn)
+            return ddpm_loss(model, b, g), ({}, mstate)
+
+        trainer = Trainer(None, None, loss_fn, adamw(1e-3), lambda g: (
+            init_unet_params(cfg, generator=g, device=g.device), {}),
+            device="cuda")
+        state = trainer.init(0)
+        _zero_launch_counts()
+        losses = []
+        for _ in range(6):
+            state, metrics = trainer.step(state, batch)
+            losses.append(metrics["loss"].item())
+        runs[name] = (losses, _launch_counts(), _launches_by_head_dim())
+    (k_losses, k_counts, k_dims), (p_losses, p_counts, _) = (
+        runs["kernel"], runs["plain"])
+    diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    assert diff <= TINY_LOSS_TOL_FP32, (k_losses, p_losses)
+    # per step: 3 blocks at 16x16 (D = 16) and the middle block (D = 32),
+    # each a self- and a cross-attention
+    assert k_dims == {k: {16: 6 * 6, 32: 6 * 2} for k in k_dims}, k_dims
+    assert (k_counts["k1_mma"], k_counts["k2_mma"], k_counts["k3_mma"]) == (
+        k_counts["k1"], k_counts["k2"], k_counts["k3"]) == (48, 48, 48), \
+        k_counts
+    assert not any(p_counts.values()), p_counts
+    return {"kernel_losses": k_losses, "plain_losses": p_losses,
+            "loss_max_abs_diff": diff, "loss_tol": TINY_LOSS_TOL_FP32,
+            "kernel_launches": k_counts, "launches_by_head_dim": k_dims}
+
+
+def phase_train_unet_sd15(results):
+    """The SD-1.5 UNet finetune through the port's example
+    (``tpucfn_torch/examples/sd15_unet.py``, ``main(argv)``): full width
+    and depth, 64x64x4 latents, a 77 x 768 context, batch 2, fp32 params,
+    EMA 0.9999, on one repeated batch; then the kernel path against the
+    plain attention path at the same params and draws; then the tiny fp32
+    UNet."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpucfn_torch.data import synthetic_latents
+    from tpucfn_torch.models.unet import UNetConfig, ddpm_noise_draws
+
+    cfg = UNetConfig.sd15()
+    assert (cfg.base_width, tuple(cfg.width_mults), cfg.n_heads,
+            cfg.context_dim, cfg.dtype) == (
+        320, (1, 2, 4, 4), 8, 768, torch.bfloat16), cfg
+    root = Path(tempfile.mkdtemp(prefix="train_unet_sd15-"))
+    out = {"card": results.get("card")}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = []
+        _zero_launch_counts()
+        # Step 1's save (13.8 GB: params, two Adam moments, the EMA) is
+        # made durable before step 4, so steps 4 on run with no write in
+        # flight.
+        with _WaitForSaveBefore(QUIET_FROM_STEP):
+            text = _run_example(["--batch-size", "2", "--steps",
+                                 str(UNET_STEPS), "--num-examples", "2",
+                                 "--log-every", "1", "--run-dir",
+                                 str(root / "run")], per_step,
+                                example="sd15_unet")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        results["unet_launches"] = _launch_counts()
+        by_dim = _launches_by_head_dim()
+        rec = _run_record(root / "run")
+        losses = [rec["losses"][i] for i in range(1, UNET_STEPS + 1)]
+        assert all(map(math.isfinite, losses)), losses
+        n = UNET_LAUNCHES_PER_STEP
+        expected = {"k1": n, "k2": n, "k3": n, "delta": n,
+                    "k1_sm90": n, "k1_decode": 0, "k1_mma": 0, "k1_fma": 0,
+                    "k2_sm90": n, "k2_mma": 0, "k2_fma": 0,
+                    "k3_sm90": n, "k3_mma": 0, "k3_fma": 0}
+        assert len(per_step) == UNET_STEPS and all(
+            c == expected for c in per_step), (per_step, expected)
+        # every launch at D = 40: none at 80 or 160
+        assert by_dim == {k: {40: n * UNET_STEPS} for k in by_dim}, by_dim
+        assert peak_gib < 80, peak_gib
+        quiet = rec["step_s"][QUIET_FROM_STEP - 1:]
+        step_ms = sum(quiet) / len(quiet) * 1e3
+        out.update({
+            "losses": losses, "launches_per_step": per_step[-1],
+            "launches_expected_per_step": expected,
+            "launches_by_head_dim": by_dim,
+            "step_ms": [x * 1e3 for x in rec["step_s"]],
+            "step_ms_no_write_in_flight": step_ms,
+            "images_per_s": 2 / (step_ms / 1e3),
+            "time_to_first_step_s": rec["time_to_first_step"],
+            "ckpt_write": rec["ckpt_write"],
+            "final_line": [line for line in text.splitlines()
+                           if line.startswith("final:")][0],
+            "peak_mem_gib": peak_gib})
+        shutil.rmtree(root / "run")
+        torch.cuda.empty_cache()
+
+        # The example's trainer step (loss, gradients, AdamW, EMA),
+        # profiled; then the parity check on its params with the
+        # zero-initialised output convolution drawn small (at zero every
+        # other gradient is zero).
+        from tpucfn_torch.examples.sd15_unet import make_fns
+        from tpucfn_torch.train import Trainer, TrainerConfig, adamw
+
+        ex = list(synthetic_latents(2, hw=64, ctx_len=77, ctx_dim=768))
+        batch = {k: torch.as_tensor(np.stack([e[k] for e in ex]),
+                                    device="cuda") for k in ex[0]}
+        init_fn, loss_fn = make_fns(cfg)
+        trainer = Trainer(None, None, loss_fn, adamw(1e-5), init_fn,
+                          config=TrainerConfig(ema_decay=0.9999),
+                          device="cuda")
+        state = trainer.init(0)
+        out["profile_step"] = _profile(
+            torch, lambda: trainer.step(state, batch), 1, kernel="flash_",
+            classes=UNET_CLASSES)
+        params = state.params
+        g = torch.Generator("cuda").manual_seed(0)
+        with torch.no_grad():
+            params["conv_out.weight"].normal_(0.0, 0.02, generator=g)
+        t, noise = ddpm_noise_draws(batch["latents"], g)
+        parity = _unet_parity(torch, cfg, params, batch, t, noise)
+        out["parity"] = parity
+        assert parity["loss_abs_diff"] <= TRAIN_LOSS_TOL_BF16, parity
+        assert parity["grad_cosine_min"] >= GRAD_COSINE_MIN, parity
+        del params, state, trainer
+        torch.cuda.empty_cache()
+        out["tiny_fp32"] = _unet_tiny_fp32(torch)
+        results["unet_tiny_launches"] = out["tiny_fp32"]["kernel_launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bert_base(results):
+    """BERT-base MLM through the port's example
+    (``tpucfn_torch/examples/bert_base.py``, ``main(argv)``): seq 128,
+    batch 32, 10 steps on one repeated batch.  Its attention is masked,
+    so dense in both packages: no flash launch."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = Path(tempfile.mkdtemp(prefix="train_bert_base-"))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = []
+        _zero_launch_counts()
+        with _WaitForSaveBefore(QUIET_FROM_STEP):
+            _run_example(["--seq-len", "128", "--batch-size", "32",
+                          "--steps", str(BERT_STEPS), "--num-examples", "32",
+                          "--log-every", "1", "--run-dir", str(root / "run")],
+                         per_step, example="bert_base")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rec = _run_record(root / "run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    losses = [rec["losses"][i] for i in range(1, BERT_STEPS + 1)]
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0], losses
+    counts = _launch_counts()
+    assert len(per_step) == BERT_STEPS and not any(counts.values()), counts
+    quiet = rec["step_s"][QUIET_FROM_STEP - 1:]
+    step_ms = sum(quiet) / len(quiet) * 1e3
+    return {"card": results.get("card"), "losses": losses,
+            "launches": counts, "step_ms": [x * 1e3 for x in rec["step_s"]],
+            "step_ms_no_write_in_flight": step_ms,
+            "tokens_per_s": 32 * 128 / (step_ms / 1e3),
+            "peak_mem_gib": peak_gib}
+
+
 KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 
@@ -3337,6 +3671,16 @@ def _kernels_line(results):
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
     spec, router = results["spec_launches"], results["router_launches"]
+    unet, unet_tiny = results["unet_launches"], results["unet_tiny_launches"]
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    def head_dims(name):
+        """The head dims the kernel is built for."""
+        if name == "flash_bwd_delta":
+            return fa.HEAD_DIMS
+        variant = next((v for v in ("decode", "mma", "fma")
+                        if f"_{v}" in name), "sm90")
+        return fa.VARIANT_HEAD_DIMS[variant]
 
     def entry(name, source, replaces, paths, rows, at, key=None):
         pick = (lambda r: r) if key is None else (lambda r: r[key])
@@ -3345,6 +3689,7 @@ def _kernels_line(results):
                 "source": f"tpucfn_torch/kernels/csrc/{source}",
                 "replaces": f"tpucfn/kernels/flash_attention.py:{replaces}",
                 "launches": sum(paths.values()), "launches_by_path": paths,
+                "head_dims": list(head_dims(name)),
                 **{k: main[k] for k in KEYS},
                 "max_abs_err": max(pick(r)["max_abs_err"] for r in rows),
                 "at": at,
@@ -3362,6 +3707,8 @@ def _kernels_line(results):
         out = []
         for r in rows:
             row = r if key is None else r[key]
+            if "fma_beside" not in row:  # a head dim fma is not built for
+                continue
             fb = row["fma_beside"]
             out.append({"case": r["case"], **{k: fb[k] for k in (
                 "max_abs_err", "bound_ms", "bound_by")},
@@ -3379,7 +3726,8 @@ def _kernels_line(results):
                "example_llama3_1b": example["k1_sm90"],
                "example_llama3_1b_packed": packed["k1_sm90"],
                "ft_llama3_1b": ft["k1_sm90"],
-               "planes_llama3_1b": planes["k1_sm90"]},
+               "planes_llama3_1b": planes["k1_sm90"],
+               "train_unet_sd15": unet["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"],
@@ -3393,7 +3741,8 @@ def _kernels_line(results):
                "serve_router_llama3_1b": router["mma"],
                "serve_spec_tiny_fp32": results["spec_tiny_launches"],
                "serve_tiny_fp32": serve_tiny["flash_fwd_mma"],
-               "train_tiny_fp32": tiny["k1_mma"]},
+               "train_tiny_fp32": tiny["k1_mma"],
+               "train_unet_tiny_fp32": unet_tiny["k1_mma"]},
               of(fwd, "mma"), "verify_sq5_serving_offsets"),
         # on no path: timed beside mma in turns
         entry("flash_fwd_fma", "flash_fwd.cu", 98, {},
@@ -3404,7 +3753,9 @@ def _kernels_line(results):
                "example_llama3_1b": example["delta"],
                "example_llama3_1b_packed": packed["delta"],
                "ft_llama3_1b": ft["delta"],
-               "planes_llama3_1b": planes["delta"]}, bwd,
+               "planes_llama3_1b": planes["delta"],
+               "train_unet_sd15": unet["delta"],
+               "train_unet_tiny_fp32": unet_tiny["delta"]}, bwd,
               "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
@@ -3412,10 +3763,12 @@ def _kernels_line(results):
                "example_llama3_1b": example["k2_sm90"],
                "example_llama3_1b_packed": packed["k2_sm90"],
                "ft_llama3_1b": ft["k2_sm90"],
-               "planes_llama3_1b": planes["k2_sm90"]},
+               "planes_llama3_1b": planes["k2_sm90"],
+               "train_unet_sd15": unet["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
-              {"train_tiny_fp32": tiny["k2_mma"]},
+              {"train_tiny_fp32": tiny["k2_mma"],
+               "train_unet_tiny_fp32": unet_tiny["k2_mma"]},
               of(bwd, "mma", "dq"), "fp32_d16_gqa2", "dq"),
         # on no path: timed beside mma in turns
         entry("flash_bwd_dq_fma", "flash_bwd.cu", 248, {},
@@ -3425,10 +3778,12 @@ def _kernels_line(results):
                "example_llama3_1b": example["k3_sm90"],
                "example_llama3_1b_packed": packed["k3_sm90"],
                "ft_llama3_1b": ft["k3_sm90"],
-               "planes_llama3_1b": planes["k3_sm90"]},
+               "planes_llama3_1b": planes["k3_sm90"],
+               "train_unet_sd15": unet["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
-              {"train_tiny_fp32": tiny["k3_mma"]},
+              {"train_tiny_fp32": tiny["k3_mma"],
+               "train_unet_tiny_fp32": unet_tiny["k3_mma"]},
               of(bwd, "mma", "dkv"), "fp32_d16_gqa2", "dkv"),
         # on no path: timed beside mma in turns
         entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308, {},
@@ -3479,7 +3834,9 @@ def main(argv=None) -> int:
            "train_tiny_fp32": lambda: phase_train_tiny_fp32(results),
            "example_llama3_1b": lambda: phase_example_llama3_1b(results),
            "ft_llama3_1b": lambda: phase_ft_llama3_1b(results),
-           "planes_llama3_1b": lambda: phase_planes_llama3_1b(results)}
+           "planes_llama3_1b": lambda: phase_planes_llama3_1b(results),
+           "train_unet_sd15": lambda: phase_train_unet_sd15(results),
+           "train_bert_base": lambda: phase_train_bert_base(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

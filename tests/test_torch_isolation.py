@@ -52,6 +52,7 @@ METRICS_OWN = ("StepTimer", "MetricLogger", "device_memory_stats",
 # (copy in the port, original in the JAX package, definition) where the
 # port keeps one function of a module that it otherwise rewrites
 COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
+               ("data/synthetic.py", "data/synthetic.py", "synthetic_latents"),
                ("data/packing.py", "data/packing.py", "pack_sequences"),
                ("data/convert.py", "data/convert.py", "convert_token_jsonl"),
                ("kernels/flash_autotune.py", "kernels/flash_autotune.py",

@@ -1,7 +1,8 @@
-"""Synthetic token data (a copy of ``synthetic_tokens`` from
-``tpucfn/data/synthetic.py``, held equal to it by
-``tests/test_torch_isolation.py``): learnable sequences for convergence
-smoke runs and the training benchmark, made from a seed with numpy."""
+"""Synthetic data (copies of ``synthetic_tokens`` and
+``synthetic_latents`` from ``tpucfn/data/synthetic.py``, held equal to
+them by ``tests/test_torch_isolation.py``): learnable token sequences for
+convergence smoke runs and the training benchmark, and SD-shaped
+latent/context pairs for the UNet, made from a seed with numpy."""
 
 from __future__ import annotations
 
@@ -25,3 +26,15 @@ def synthetic_tokens(
         for i in range(1, seq_len):
             seq[i] = (a * int(seq[i - 1]) + b) % vocab
         yield {"tokens": seq}
+
+
+def synthetic_latents(
+    n: int = 256, hw: int = 32, ctx_len: int = 77, ctx_dim: int = 768, seed: int = 0
+) -> Iterator[dict[str, np.ndarray]]:
+    """SD-shaped latent/text-context pairs for diffusion finetune smoke."""
+    rs = np.random.RandomState(seed)
+    for _ in range(n):
+        yield {
+            "latents": rs.randn(hw, hw, 4).astype(np.float32),
+            "context": rs.randn(ctx_len, ctx_dim).astype(np.float32),
+        }

@@ -111,6 +111,16 @@ def refuse_unported_planes(args) -> None:
             "obs port (TPUCFN_OBS_PORT) instead")
 
 
+def refuse_sharded_parameters(args) -> None:
+    """Exit non-zero, naming ROADMAP Queue 1 C2, for ``--fsdp`` or
+    ``--tensor`` > 1: the trainer runs data parallel only."""
+    for flag, n, what in (("--fsdp", args.fsdp, "sharded parameters"),
+                          ("--tensor", args.tensor, "tensor parallelism")):
+        if n > 1:
+            raise SystemExit(f"{flag} > 1 ({what}) is not ported to "
+                             "tpucfn_torch yet (ROADMAP Queue 1 C2)")
+
+
 def per_process_batch(args) -> int:
     from tpucfn_torch.launch import process_count
 
@@ -125,18 +135,23 @@ def per_process_batch(args) -> int:
 def stage_synthetic(kind: str, data_dir: Path, *, n: int, num_shards: int,
                     seed: int = 0, **gen_kwargs):
     """Stage synthetic data once (real datasets go through the same
-    ``write_dataset_shards`` path).  ``tokens`` only: the image and latent
-    generators wait with their models."""
-    from tpucfn_torch.data import synthetic_tokens, write_dataset_shards
+    ``write_dataset_shards`` path): ``tokens`` or ``latents``.  The image
+    kinds (``cifar10``, ``imagenet``) wait with the ResNet (ROADMAP Queue
+    1 A5)."""
+    from tpucfn_torch.data import (synthetic_latents, synthetic_tokens,
+                                   write_dataset_shards)
 
+    gen = {"tokens": synthetic_tokens, "latents": synthetic_latents}.get(kind)
+    if gen is None:
+        raise NotImplementedError(
+            f"synthetic {kind!r} data is not ported to tpucfn_torch yet "
+            "(ROADMAP Queue 1 A5)")
     data_dir.mkdir(parents=True, exist_ok=True)
     existing = sorted(data_dir.glob("*.tpurec"))
     if existing:
         return existing
-    if kind != "tokens":
-        raise NotImplementedError(f"synthetic {kind!r} data is not ported")
-    return write_dataset_shards(synthetic_tokens(n, seed=seed, **gen_kwargs),
-                                data_dir, num_shards=num_shards)
+    return write_dataset_shards(gen(n, seed=seed, **gen_kwargs), data_dir,
+                                num_shards=num_shards)
 
 
 def _clear_checkpoints(run_dir: Path) -> None:

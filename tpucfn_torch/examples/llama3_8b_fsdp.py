@@ -40,6 +40,7 @@ if _REPO_ROOT not in sys.path:
 from tpucfn_torch.examples.common import (  # noqa: E402
     add_cluster_args,
     per_process_batch,
+    refuse_sharded_parameters,
     refuse_unported_planes,
     run_train_loop,
     stage_synthetic,
@@ -79,9 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported_options(args) -> None:
     """Exit non-zero, naming the ROADMAP item, for options the port does
     not have."""
+    refuse_sharded_parameters(args)
     refused = (
-        (args.fsdp > 1, "--fsdp > 1 (sharded parameters)", "C2"),
-        (args.tensor > 1, "--tensor > 1 (tensor parallelism)", "C2"),
         (args.context > 1, "--context > 1 (ring attention)", "C3"),
         (args.ring_flash, "--ring-flash (ring attention)", "C3"),
         (args.moe_experts > 0, "--moe-experts (MoE)", "C4"),

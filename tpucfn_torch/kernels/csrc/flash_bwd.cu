@@ -366,14 +366,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
 
 // Delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d].  A CTA covers
 // kDeltaPos positions x HEADS heads of batch row blockIdx.z; its rows run
-// head-fastest (memory order), a row is L lanes of one 16-byte vector each,
-// and thread t takes rows t / L + j * (kThreads / L), j < kDeltaRows.
+// head-fastest (memory order), a row is L lanes of one 16-byte vector each
+// (its VECS vectors rounded up to a power of two: at D = 40 the lanes past
+// the row's 5 (bf16) or 10 (fp32) vectors load nothing and add zero), and
+// thread t takes rows t / L + j * (kThreads / L), j < kDeltaRows.
 constexpr int kDeltaPos = 32;  // positions per CTA: one 128-byte run of Delta per head
 constexpr int kDeltaRows = 8;  // rows per thread, all loads in flight together
 
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 template <typename T, int D>
 struct DeltaCfg {
-  static constexpr int L = D / Vec<T>::N;                 // lanes per row
+  static constexpr int VECS = D / Vec<T>::N;              // 16-byte vectors per row
+  static constexpr int L = pow2_ceil(VECS);               // lanes per row
   static constexpr int PASS = kThreads / L;               // rows per pass of the CTA
   static constexpr int HEADS = PASS * kDeltaRows / kDeltaPos;
   static_assert(HEADS >= 1 && HEADS * kDeltaPos == PASS * kDeltaRows, "whole runs of positions");
@@ -392,7 +397,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kDeltaRows; ++j) {
     const int row = first + j * C::PASS, s = s0 + row / HEADS, h = h0 + row % HEADS;
     ov[j] = dv[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (s < Sq && h < H) {
+    if (s < Sq && h < H && part < C::VECS) {
       const size_t off = ((size_t)(b * Sq + s) * H + h) * D + part * Vec<T>::N;
       // read once: evict-first in L2, so no other line is pushed out for them
       ov[j] = __ldcs(reinterpret_cast<const uint4*>(o + off));
@@ -434,6 +439,8 @@ int dispatch_delta(int D, const void* o, const void* dout, float* delta, int B, 
                    cudaStream_t s) {
   switch (D) {
     case 16: return launch_delta<T, 16>(o, dout, delta, B, Sq, H, s);
+    case 32: return launch_delta<T, 32>(o, dout, delta, B, Sq, H, s);
+    case 40: return launch_delta<T, 40>(o, dout, delta, B, Sq, H, s);
     case 64: return launch_delta<T, 64>(o, dout, delta, B, Sq, H, s);
     case 128: return launch_delta<T, 128>(o, dout, delta, B, Sq, H, s);
     default: return -1;

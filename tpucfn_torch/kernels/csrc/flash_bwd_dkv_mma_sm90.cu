@@ -48,6 +48,13 @@
 //    k-slice of the second products is permuted so that P^T's and dS^T's
 //    accumulator registers are their A fragments with no shuffle.
 //
+// Head dims 16, 32, 40, 64 and 128.  bf16 reduces over D in 16-column
+// k-steps, so a D = 40 row (five 16-byte chunks) is staged as 48
+// columns, the sixth chunk zero-filled by cp.async, in a 64-column
+// swizzled tile; fp32 (ten chunks a row) reduces in 8-column k-steps,
+// which 40 fills.  Products into D columns run over D / 8 n-tiles and
+// store only those.
+//
 // Layout: q, dO (B, Sq, H, D); k, v, dK, dV (B, Sk, Hkv, D), one dtype
 // (bf16 or fp32), contiguous, 16-byte aligned; lse, delta, dlse (B, H, Sq)
 // fp32 (dlse may be null); q_seg (B, Sq), kv_seg (B, Sk) int32 or null.
@@ -109,9 +116,15 @@ struct Cfg {
   // and of one warp's quarter of it.
   static constexpr int ROWS = F32 && D == 128 ? 64 : 128;
   static constexpr int BQ = ROWS / kWarps;
-  static constexpr int PITCH = F32 ? (D + 4) * 4 : D * 2;  // bytes of a row
-  static constexpr int QD = D * (int)sizeof(T) / 16;       // 16-byte columns of a row
-  static constexpr int QN = D / 8 < 8 ? D / 8 : 8;          // bf16 swizzle span
+  // bf16 reduces over D in 16-column k-steps, so D = 40 is staged as a
+  // 48-column row, its last 16 bytes zero-filled, in a 64-column tile (the
+  // XOR swizzle spans a power of two of 16-byte columns).
+  static constexpr int DK = F32 ? D : (D + 15) / 16 * 16;   // columns reduced over
+  static constexpr int DS = F32 || D != 40 ? D : 64;        // bf16 columns of a tile row
+  static constexpr int PITCH = F32 ? (D + 4) * 4 : DS * 2;  // bytes of a row
+  static constexpr int QD = D * (int)sizeof(T) / 16;        // 16-byte columns of a row
+  static constexpr int QZ = DK * (int)sizeof(T) / 16;       // ... staged (past QD: zeros)
+  static constexpr int QN = DS / 8 < 8 ? DS / 8 : 8;        // bf16 swizzle span
   static constexpr int OFF_V = kWarpKeys * PITCH;
   static constexpr int OFF_RING = 2 * kWarpKeys * PITCH;
   static constexpr int TILE = ROWS * PITCH;
@@ -150,10 +163,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const Param
 
   // The block's K and V rows, in the first copy group; keys past Sk are
   // zero-filled.
-  for (int i = tid; i < kWarpKeys * C::QD; i += kThreads) {
-    const int key = i / C::QD, q = i % C::QD, kpos = min(k0 + key, p.Sk - 1);
-    const size_t src = ((size_t)(b * p.Sk + kpos) * p.Hkv + hk) * qrow + q * 16;
-    const int bytes = k0 + key < p.Sk ? 16 : 0;
+  for (int i = tid; i < kWarpKeys * C::QZ; i += kThreads) {
+    const int key = i / C::QZ, q = i % C::QZ, kpos = min(k0 + key, p.Sk - 1);
+    const size_t src = ((size_t)(b * p.Sk + kpos) * p.Hkv + hk) * qrow + (q < C::QD ? q : 0) * 16;
+    const int bytes = k0 + key < p.Sk && q < C::QD ? 16 : 0;
     cp_async16(base + C::at(key, q), static_cast<const char*>(p.k) + src, bytes);
     cp_async16(base + C::OFF_V + C::at(key, q), static_cast<const char*>(p.v) + src, bytes);
   }
@@ -164,10 +177,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const Param
     if (j < n_tiles) {
       const int row0 = r_begin + j * C::ROWS;
       const uint32_t slot = base + C::OFF_RING + j % kSlots * C::SLOT;
-      for (int i = tid; i < C::ROWS * C::QD; i += kThreads) {
-        const int r = i / C::QD, q = i % C::QD, R = min(row0 + r, total - 1);
-        const size_t src = ((size_t)(b * p.Sq + R / rep) * p.H + hk * rep + R % rep) * qrow + q * 16;
-        const int bytes = row0 + r < total ? 16 : 0;
+      for (int i = tid; i < C::ROWS * C::QZ; i += kThreads) {
+        const int r = i / C::QZ, q = i % C::QZ, R = min(row0 + r, total - 1);
+        const size_t src = ((size_t)(b * p.Sq + R / rep) * p.H + hk * rep + R % rep) * qrow +
+                           (q < C::QD ? q : 0) * 16;
+        const int bytes = row0 + r < total && q < C::QD ? 16 : 0;
         cp_async16(slot + C::at(r, q), static_cast<const char*>(p.q) + src, bytes);
         cp_async16(slot + C::TILE + C::at(r, q), static_cast<const char*>(p.dout) + src, bytes);
       }
@@ -251,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const Param
       }
     } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < C::DK / 16; ++kk) {
         // K's and V's A fragments: the block's 16 keys x columns 16 kk .. + 15.
         uint32_t ka[4], va[4];
         const int arow = lrow + 8 * lmat, acol = 2 * kk + lane / 16;
@@ -409,6 +423,8 @@ template <typename T>
 int dispatch_d(int D, const Params& p, cudaStream_t s) {
   switch (D) {
     case 16: return launch<T, 16>(p, s);
+    case 32: return launch<T, 32>(p, s);
+    case 40: return launch<T, 40>(p, s);
     case 64: return launch<T, 64>(p, s);
     case 128: return launch<T, 128>(p, s);
     default: return kErrHeadDim;

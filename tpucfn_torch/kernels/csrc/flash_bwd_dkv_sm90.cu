@@ -33,6 +33,9 @@
 //    while dP^T is in flight, which ptxas answers by serializing the wgmma
 //    pipeline (C7515); registers of its own for P^T cost more: at D = 64
 //    two CTAs per SM leave 168 registers a thread, and it spills.)
+//  * D = 32 tiles use the 64-byte swizzle; D = 40 runs on zero-padded
+//    64-column tiles (sm90.cuh, tile_cols): S^T and dP^T reduce over 48
+//    columns, dK and dV are accumulated over 64 and 40 are stored.
 //  * Under causality a key block starts at the first row that can see it.
 //    Blocks are dispatched heaviest first across the whole grid: key block
 //    0 of every (KV head, batch row), then block 1, and so on.
@@ -64,7 +67,8 @@ constexpr int kThreads = 160;  // warps 0-3 consume, warp 4 produces
 
 template <int D>
 struct Cfg {
-  static constexpr int TILE = 64 * D * 2;  // bytes of one 64 x D bf16 tile
+  static constexpr int DT = tile_cols(D);   // columns of a shared-memory tile
+  static constexpr int TILE = 64 * DT * 2;  // bytes of one 64 x DT bf16 tile
   static constexpr int OFF_V = TILE;
   static constexpr int OFF_Q = 2 * TILE;
   static constexpr int OFF_DO = OFF_Q + kStages * TILE;
@@ -92,6 +96,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
                               const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap, const Params p) {
   using C = Cfg<D>;
+  constexpr int DT = C::DT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -154,8 +159,8 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
       }
       if (lane == 0) {
         mbar_expect_tx(full + s, 2 * C::TILE);
-        tma_tile<D>(sQ + s * kBQ * D, &qmap, full + s, kBQ, hk * rep, row0 / rep, b);
-        tma_tile<D>(sDO + s * kBQ * D, &domap, full + s, kBQ, hk * rep, row0 / rep, b);
+        tma_tile<D>(sQ + s * kBQ * DT, &qmap, full + s, kBQ, hk * rep, row0 / rep, b);
+        tma_tile<D>(sDO + s * kBQ * DT, &domap, full + s, kBQ, hk * rep, row0 / rep, b);
       } else {
         mbar_arrive(full + s);
       }
@@ -177,9 +182,9 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
   const float scale_log2 = p.scale * kLog2e;
   const long long last_key = (long long)p.k_offset + k0 + kKeys - 1;
 
-  float dk[D / 2], dv[D / 2];
+  float dk[DT / 2], dv[DT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
   float pt[kBQ / 2], dpt[kBQ / 2];  // S^T then P^T; dP^T then dS^T
 
   // S^T = K Q_t^T and dP^T = V dO_t^T, issued as two committed groups.
@@ -188,12 +193,12 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
     mbar_wait(full + s, (t / kStages) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBQ>(pt, desc_kmajor<D>(sK, kKeys, kk), desc_kmajor<D>(sQ + s * kBQ * D, kBQ, kk), kk > 0);
+    for (int kk = 0; kk < k_steps(D); ++kk)
+      wgmma_ss<kBQ>(pt, desc_kmajor<D>(sK, kKeys, kk), desc_kmajor<D>(sQ + s * kBQ * DT, kBQ, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBQ>(dpt, desc_kmajor<D>(sV, kKeys, kk), desc_kmajor<D>(sDO + s * kBQ * D, kBQ, kk), kk > 0);
+    for (int kk = 0; kk < k_steps(D); ++kk)
+      wgmma_ss<kBQ>(dpt, desc_kmajor<D>(sV, kKeys, kk), desc_kmajor<D>(sDO + s * kBQ * DT, kBQ, kk), kk > 0);
     wgmma_commit();
   };
 
@@ -209,8 +214,8 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
     const float* st = sStat + s * 2 * kBQ;
     wgmma_wait<1>();  // dV/dK of tile t - 1 and S^T of tile t
     fence_regs<kBQ / 2>(pt);
-    fence_regs<D / 2>(dv);
-    fence_regs<D / 2>(dk);
+    fence_regs<DT / 2>(dv);
+    fence_regs<DT / 2>(dk);
     if (t > 0 && lane == 0) mbar_arrive(empty + (t - 1) % kStages);
 
     // P^T = exp(S^T * scale - LSE[column]) on live pairs.
@@ -260,16 +265,16 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_rs<D>(dv, pa[kk], desc_mnmajor<D>(sDO + s * kBQ * D, kBQ, kk));
+      wgmma_rs<DT>(dv, pa[kk], desc_mnmajor<D>(sDO + s * kBQ * DT, kBQ, kk));
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_rs<D>(dk, da[kk], desc_mnmajor<D>(sQ + s * kBQ * D, kBQ, kk));
+      wgmma_rs<DT>(dk, da[kk], desc_mnmajor<D>(sQ + s * kBQ * DT, kBQ, kk));
     wgmma_commit();
     if (t + 1 < n_tiles) issue_sdp(t + 1);
   }
   wgmma_wait<0>();
-  fence_regs<D / 2>(dv);
-  fence_regs<D / 2>(dk);
+  fence_regs<DT / 2>(dv);
+  fence_regs<DT / 2>(dk);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -323,6 +328,8 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, dout, p, s);
+    case 32: return launch<32>(q, k, v, dout, p, s);
+    case 40: return launch<40>(q, k, v, dout, p, s);
     case 64: return launch<64>(q, k, v, dout, p, s);
     case 128: return launch<128>(q, k, v, dout, p, s);
     default: return kErrHeadDim;

@@ -57,6 +57,13 @@
 //    dO's fragments in bf16, so D = 128 walks 32-key tiles (S and dP then
 //    take 16 registers each instead of 32).
 //
+// Head dims 16, 32, 40, 64 and 128.  bf16 reduces over D in 16-column
+// k-steps, so a D = 40 row (five 16-byte chunks) is staged as 48
+// columns, the sixth chunk zero-filled by cp.async, in a 64-column
+// swizzled tile; fp32 (ten chunks a row) reduces in 8-column k-steps,
+// which 40 fills.  Products into D columns run over D / 8 n-tiles and
+// store only those.
+//
 // Layout: q, dO, dQ (B, Sq, H, D); k, v (B, Sk, Hkv, D), one dtype (bf16
 // or fp32), contiguous, 16-byte aligned; lse, delta, dlse (B, H, Sq) fp32
 // (dlse may be null); q_seg (B, Sq), kv_seg (B, Sk) int32 or null.
@@ -118,9 +125,15 @@ template <typename T, int D>
 struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int KEYS = tile_keys<D>();
-  static constexpr int PITCH = F32 ? (D + 4) * 4 : D * 2;  // bytes of a row
-  static constexpr int QD = D * (int)sizeof(T) / 16;       // 16-byte columns of a row
-  static constexpr int QN = D / 8 < 8 ? D / 8 : 8;          // bf16 swizzle span
+  // bf16 reduces over D in 16-column k-steps, so D = 40 is staged as a
+  // 48-column row, its last 16 bytes zero-filled, in a 64-column tile (the
+  // XOR swizzle spans a power of two of 16-byte columns).
+  static constexpr int DK = F32 ? D : (D + 15) / 16 * 16;   // columns reduced over
+  static constexpr int DS = F32 || D != 40 ? D : 64;        // bf16 columns of a tile row
+  static constexpr int PITCH = F32 ? (D + 4) * 4 : DS * 2;  // bytes of a row
+  static constexpr int QD = D * (int)sizeof(T) / 16;        // 16-byte columns of a row
+  static constexpr int QZ = DK * (int)sizeof(T) / 16;       // ... staged (past QD: zeros)
+  static constexpr int QN = DS / 8 < 8 ? DS / 8 : 8;        // bf16 swizzle span
   static constexpr int TILE = KEYS * PITCH;
   static constexpr int RING = kSlots * 2 * TILE;
   static constexpr int OFF_Q = RING;
@@ -187,11 +200,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_dq_mma_kernel(const 
     if (j < n_tiles) {
       const int k0 = j * KEYS;
       const uint32_t kt = ring + j % kSlots * 2 * C::TILE;
-      for (int i = tid; i < KEYS * C::QD; i += nthr) {
-        const int key = i / C::QD, q = i % C::QD;
+      for (int i = tid; i < KEYS * C::QZ; i += nthr) {
+        const int key = i / C::QZ, q = i % C::QZ;
         const int kpos = min(k0 + key, n_keys - 1);
-        const size_t src = (((size_t)(b * p.Sk + kpos) * p.Hkv + hk) * D) * sizeof(T) + q * 16;
-        const int bytes = k0 + key < n_keys ? 16 : 0;
+        const size_t src =
+            (((size_t)(b * p.Sk + kpos) * p.Hkv + hk) * D) * sizeof(T) + (q < C::QD ? q : 0) * 16;
+        const int bytes = k0 + key < n_keys && q < C::QD ? 16 : 0;
         cp_async16(kt + C::at(key, q), K + src, bytes);
         cp_async16(kt + C::TILE + C::at(key, q), V + src, bytes);
       }
@@ -226,8 +240,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_dq_mma_kernel(const 
     }
   }
   // bf16: Q's and dO's rows as A fragments (k-step kk: columns 16 kk + 2c,
-  // + 1 and + 8, + 9), loaded once; rows past n_rows are zero.
-  uint32_t qa[C::F32 ? 1 : D / 16][4], da[C::F32 ? 1 : D / 16][4];
+  // + 1 and + 8, + 9), loaded once; rows past n_rows and columns past D
+  // are zero.
+  uint32_t qa[C::F32 ? 1 : C::DK / 16][4], da[C::F32 ? 1 : C::DK / 16][4];
   if constexpr (!C::F32) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -236,11 +251,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_dq_mma_kernel(const 
       const uint32_t* qs = reinterpret_cast<const uint32_t*>(Q + row_at(real ? R : 0));
       const uint32_t* ds = reinterpret_cast<const uint32_t*>(DO + row_at(real ? R : 0));
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < C::DK / 16; ++kk) {
+        const bool hi = real && 16 * kk + 8 < D;  // columns 16 kk + 8 .. + 15 exist
         qa[kk][i] = real ? __ldg(qs + 8 * kk + c) : 0u;
-        qa[kk][i + 2] = real ? __ldg(qs + 8 * kk + 4 + c) : 0u;
+        qa[kk][i + 2] = hi ? __ldg(qs + 8 * kk + 4 + c) : 0u;
         da[kk][i] = real ? __ldg(ds + 8 * kk + c) : 0u;
-        da[kk][i + 2] = real ? __ldg(ds + 8 * kk + 4 + c) : 0u;
+        da[kk][i + 2] = hi ? __ldg(ds + 8 * kk + 4 + c) : 0u;
       }
     }
   }
@@ -297,7 +313,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_dq_mma_kernel(const 
 #pragma unroll
       for (int t = 0; t < NT; ++t)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < C::DK / 16; ++kk) {
           uint32_t b0, b1;  // keys 8t .. 8t + 7 x columns 16 kk .. + 15
           ldsm_x2(kt + C::at(8 * t + lrow, 2 * kk + lmat), b0, b1);
           mma16816(s[t], qa[kk], b0, b1);
@@ -391,6 +407,8 @@ template <typename T>
 int dispatch_d(int D, const Params& p, cudaStream_t s) {
   switch (D) {
     case 16: return launch<T, 16>(p, s);
+    case 32: return launch<T, 32>(p, s);
+    case 40: return launch<T, 40>(p, s);
     case 64: return launch<T, 64>(p, s);
     case 128: return launch<T, 128>(p, s);
     default: return kErrHeadDim;

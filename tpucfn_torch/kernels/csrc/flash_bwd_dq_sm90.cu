@@ -42,6 +42,9 @@
 //    ptxas serializes the wgmma pipeline (C7515); a loop that retires
 //    every group within its iteration avoids that, but at D = 64 it needs
 //    148 registers a thread, which leaves two CTAs per SM, and ran slower.
+//  * D = 32 tiles use the 64-byte swizzle; D = 40 runs on zero-padded
+//    64-column tiles (sm90.cuh, tile_cols): S and dP reduce over 48
+//    columns, dQ is accumulated over 64 and 40 are stored.
 //  * Occupancy is what hides the latencies the serialized pipeline
 //    exposes: at D <= 64 the kernel is held to 128 registers and a 2-stage
 //    ring (50 KB of shared memory) so that three CTAs share an SM; at
@@ -78,7 +81,8 @@ constexpr int kThreads = 160;  // warps 0-3 consume, warp 4 produces
 
 template <int D>
 struct Cfg {
-  static constexpr int TILE = 64 * D * 2;  // bytes of one 64 x D bf16 tile
+  static constexpr int DT = tile_cols(D);   // columns of a shared-memory tile
+  static constexpr int TILE = 64 * DT * 2;  // bytes of one 64 x DT bf16 tile
   static constexpr int OFF_DO = TILE;
   static constexpr int OFF_K = 2 * TILE;  // every tile starts 1024-aligned
   static constexpr int OFF_V = OFF_K + kStages * TILE;
@@ -105,6 +109,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap, const Params p) {
   using C = Cfg<D>;
+  constexpr int DT = C::DT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -164,9 +169,9 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
       }
       if (lane == 0) {
         mbar_expect_tx(full_k + s, C::TILE);
-        tma_tile<D>(sK + s * kKeys * D, &kmap, full_k + s, kKeys, hk, t * kKeys, b);
+        tma_tile<D>(sK + s * kKeys * DT, &kmap, full_k + s, kKeys, hk, t * kKeys, b);
         mbar_expect_tx(full_v + s, C::TILE);
-        tma_tile<D>(sV + s * kKeys * D, &vmap, full_v + s, kKeys, hk, t * kKeys, b);
+        tma_tile<D>(sV + s * kKeys * DT, &vmap, full_v + s, kKeys, hk, t * kKeys, b);
       } else {
         mbar_arrive(full_k + s);
       }
@@ -200,9 +205,9 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
   // Keys up to this position are visible to every row of the block.
   const long long first_visible = (long long)p.q_offset + row0 / rep - p.k_offset;
 
-  float dq[D / 2];
+  float dq[DT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DT / 2; ++i) dq[i] = 0.f;
   float s[kKeys / 2], dp[kKeys / 2];  // S then P; dP then dS
 
   // S = Q K_t^T and dP = dO V_t^T, issued as two committed groups.
@@ -212,14 +217,14 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
     mbar_wait(full_v + st, (t / kStages) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < k_steps(D); ++kk)
       wgmma_ss<kKeys>(s, desc_kmajor<D>(sQ, kRows, kk),
-                      desc_kmajor<D>(sK + st * kKeys * D, kKeys, kk), kk > 0);
+                      desc_kmajor<D>(sK + st * kKeys * DT, kKeys, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < k_steps(D); ++kk)
       wgmma_ss<kKeys>(dp, desc_kmajor<D>(sDO, kRows, kk),
-                      desc_kmajor<D>(sV + st * kKeys * D, kKeys, kk), kk > 0);
+                      desc_kmajor<D>(sV + st * kKeys * DT, kKeys, kk), kk > 0);
     wgmma_commit();
   };
 
@@ -268,12 +273,12 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_rs<D>(dq, da[kk], desc_mnmajor<D>(sK + st * kKeys * D, kKeys, kk));
+      wgmma_rs<DT>(dq, da[kk], desc_mnmajor<D>(sK + st * kKeys * DT, kKeys, kk));
     wgmma_commit();
     if (t + 1 < n_tiles) issue_sdp(t + 1);
   }
   wgmma_wait<0>();
-  fence_regs<D / 2>(dq);
+  fence_regs<DT / 2>(dq);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -325,6 +330,8 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* d
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, dout, p, s);
+    case 32: return launch<32>(q, k, v, dout, p, s);
+    case 40: return launch<40>(q, k, v, dout, p, s);
     case 64: return launch<64>(q, k, v, dout, p, s);
     case 128: return launch<128>(q, k, v, dout, p, s);
     default: return kErrHeadDim;

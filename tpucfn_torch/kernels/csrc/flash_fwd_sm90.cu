@@ -27,8 +27,10 @@
 //    64 / rep positions x rep adjacent heads: the GQA packing is the box
 //    shape), then K and V tiles into a 3-stage ring guarded by full/empty
 //    mbarriers, so the next tiles land while this one computes.  Tiles
-//    stay bf16 in shared memory, in the 128-byte (32-byte at D = 16)
-//    swizzle that the wgmma descriptors name.
+//    stay bf16 in shared memory, in the 128-byte (64-byte at D = 32,
+//    32-byte at D = 16) swizzle that the wgmma descriptors name.  D = 40
+//    runs on a zero-padded 64-column tile (sm90.cuh, tile_cols): Q K^T
+//    reduces over 48 columns, P V produces 64, and 40 are stored.
 //  * Software pipeline: S of tile t + 1 is issued just before P V of tile
 //    t, so the softmax of t + 1 runs while P V of t is on the tensor cores;
 //    O is rescaled once P V has landed.  A stage is freed one softmax
@@ -64,9 +66,10 @@ constexpr int kThreads = 160;  // warps 0-3 consume, warp 4 produces
 
 template <int D>
 struct Cfg {
+  static constexpr int DT = tile_cols(D);  // columns of a shared-memory tile
   static constexpr int BK = D == 128 ? 64 : 128;  // keys per K/V tile
-  static constexpr int Q_BYTES = kRows * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int Q_BYTES = kRows * DT * 2;
+  static constexpr int KV_BYTES = BK * DT * 2;
   static constexpr int OFF_K = Q_BYTES;  // every tile starts 1024-aligned
   static constexpr int OFF_V = OFF_K + kStages * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + kStages * KV_BYTES;
@@ -89,7 +92,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, const Params p) {
   using C = Cfg<D>;
-  constexpr int BK = C::BK;
+  constexpr int BK = C::BK, DT = C::DT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -139,9 +142,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(full_k + s, C::KV_BYTES);
-        tma_tile<D>(sK + s * BK * D, &kmap, full_k + s, BK, hk, t * BK, b);
+        tma_tile<D>(sK + s * BK * DT, &kmap, full_k + s, BK, hk, t * BK, b);
         mbar_expect_tx(full_v + s, C::KV_BYTES);
-        tma_tile<D>(sV + s * BK * D, &vmap, full_v + s, BK, hk, t * BK, b);
+        tma_tile<D>(sV + s * BK * DT, &vmap, full_v + s, BK, hk, t * BK, b);
       }
     }
     return;
@@ -162,9 +165,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long first_visible = (long long)q_off + row0 / rep - p.k_offset;
   const float scale_log2 = p.scale * kLog2e;
 
-  float o[D / 2];
+  float o[DT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DT / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m in raw score units
   uint32_t pa[BK / 16][4];  // P of the tile whose P V is next, as A fragments
 
@@ -173,9 +176,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     mbar_wait(full_k + t % kStages, (t / kStages) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < k_steps(D); ++kk)
       wgmma_ss<BK>(x, desc_kmajor<D>(sQ, kRows, kk),
-                   desc_kmajor<D>(sK + t % kStages * BK * D, BK, kk), kk > 0);
+                   desc_kmajor<D>(sK + t % kStages * BK * DT, BK, kk), kk > 0);
     wgmma_commit();
   };
   // O += P V_t from pa, issued and committed.
@@ -184,7 +187,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D>(o, pa[kk], desc_mnmajor<D>(sV + t % kStages * BK * D, BK, kk));
+      wgmma_rs<DT>(o, pa[kk], desc_mnmajor<D>(sV + t % kStages * BK * DT, BK, kk));
     wgmma_commit();
   };
   // Online softmax of tile t's scores x, in place: masks where one can
@@ -252,10 +255,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       fence_regs<BK / 2>(x);
       softmax(t + 1, x, alpha);
       wgmma_wait<0>();  // P V of tile t
-      fence_regs<D / 2>(o);
+      fence_regs<DT / 2>(o);
       if (lane == 0) mbar_arrive(empty + t % kStages);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DT / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[4 * n + e] *= alpha[e / 2];
 #pragma unroll
@@ -263,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     } else {
       pv(t);
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
+      fence_regs<DT / 2>(o);
     }
   }
 
@@ -322,6 +325,8 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, p, s);
+    case 32: return launch<32>(q, k, v, p, s);
+    case 40: return launch<40>(q, k, v, p, s);
     case 64: return launch<64>(q, k, v, p, s);
     case 128: return launch<128>(q, k, v, p, s);
     default: return kErrHeadDim;

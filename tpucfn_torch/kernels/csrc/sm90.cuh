@@ -11,9 +11,15 @@
 // with the swizzle that its row width allows: a D = 64 row is 128 bytes,
 // one 128-byte swizzle atom wide (SW128); a D = 128 tile is loaded as two
 // 64-column halves, each an SW128 block of R x 64, one after the other; a
-// D = 16 row is 32 bytes (SW32).  Every tile starts on a 1024-byte
-// boundary, so the swizzle pattern that TMA writes is the one that the
-// wgmma descriptor names.
+// D = 32 row is 64 bytes (SW64) and a D = 16 row 32 bytes (SW32).  A
+// D = 40 row (80 bytes) fits no swizzle span: it is loaded as a 64-column
+// SW128 box over a tensor map whose innermost extent is 40, so TMA fills
+// columns 40-63 with zeros and the products see a zero-padded D = 64 tile
+// (tile_cols); the reduction over D stops at 48 columns (k_steps), and
+// the kernels store only the D real columns of each output row, which in
+// global memory is the next head's start.  Every tile starts on a
+// 1024-byte boundary, so the swizzle pattern that TMA writes is the one
+// that the wgmma descriptor names.
 //
 // Descriptors (PTX ISA, "matrix descriptor"; the canonical layouts are
 // those of CUTLASS's make_gmma_desc):
@@ -71,16 +77,23 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// Width in bf16 of one TMA box row, and its swizzle: 64 (SW128) for D >= 64,
-// else D (D = 16: SW32).
-__host__ __device__ constexpr int box_cols(int D) { return D >= 64 ? 64 : D; }
+// Columns of a shared-memory tile: D, or 64 for D = 40 (zero-padded).
+__host__ __device__ constexpr int tile_cols(int D) { return D == 40 ? 64 : D; }
+// 16-wide K slices of a product that reduces over D: the columns past D
+// are zero, so the padded tile's last 16 are skipped (40 -> 48).
+__host__ __device__ constexpr int k_steps(int D) { return (D + 15) / 16; }
+// Width in bf16 of one TMA box row, and its swizzle: 64 (SW128) for tiles
+// of 64 columns or more, else the tile's width (32: SW64, 16: SW32).
+__host__ __device__ constexpr int box_cols(int D) {
+  return tile_cols(D) >= 64 ? 64 : tile_cols(D);
+}
 __host__ __device__ constexpr int pitch_bytes(int D) { return box_cols(D) * 2; }
 
 // A 4-D map over a contiguous (B, S, Hn, D) bf16 tensor, dims innermost
 // first (D, Hn, S, B), box (box_cols(D), heads, rows, 1): a box of `heads`
 // adjacent heads at `rows` positions lands as rows * heads tile rows,
 // position-major, which is the GQA row packing.  Out-of-range positions
-// are filled with zeros.
+// (and at D = 40 the box's columns past 40) are filled with zeros.
 inline int make_map(CUtensorMap* map, const void* base, int B, int S, int Hn, int D, int heads,
                     int rows) {
   EncodeTiled enc = encoder();
@@ -90,8 +103,9 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int S, int Hn, in
                                  (cuuint64_t)S * Hn * D * 2};
   const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), (cuuint32_t)heads, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      pitch_bytes(D) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz = pitch_bytes(D) == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : pitch_bytes(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -159,20 +173,20 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// Loads an R x D tile (R = heads * rows) at coordinates (head, pos, b):
-// one box, or two 64-column halves for D = 128.
+// Loads an R x tile_cols(D) tile (R = heads * rows) at coordinates (head,
+// pos, b): one box, or two 64-column halves for D = 128.
 template <int D>
 __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int R, int head, int pos, int b) {
 #pragma unroll
-  for (int h = 0; h < D / box_cols(D); ++h)
+  for (int h = 0; h < tile_cols(D) / box_cols(D); ++h)
     tma_load_4d(dst + h * R * box_cols(D), map, bar, h * box_cols(D), head, pos, b);
 }
 
 // ---- device: wgmma -------------------------------------------------------------
 
 __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo, int D) {
-  const uint64_t layout = pitch_bytes(D) == 128 ? 1 : 3;  // SW128 : SW32
+  const uint64_t layout = pitch_bytes(D) == 128 ? 1 : pitch_bytes(D) == 64 ? 2 : 3;  // SW128/64/32
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
@@ -186,7 +200,7 @@ __device__ __forceinline__ uint64_t desc_kmajor(const __nv_bfloat16* tile, int R
 }
 
 // MN-major operand: rows [16 kk, 16 kk + 16) of an R x D tile as the
-// reduced dimension, all D columns as the output dimension.
+// reduced dimension, all tile_cols(D) columns as the output dimension.
 template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* tile, int R, int kk) {
   constexpr int W = box_cols(D);
@@ -245,6 +259,18 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 32, fp32) += A(64 x 16) * B(16 x 32); A bf16 in registers (the
+// accumulator layout of a previous product), B bf16 in shared memory,
+// MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D(64 x 64, fp32) += A(64 x 16) * B(16 x 64); A bf16 in registers (the
 // accumulator layout of a previous product), B bf16 in shared memory,
 // MN-major.
@@ -278,8 +304,9 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  static_assert(N == 16 || N == 64 || N == 128, "wgmma_rs: N is 16, 64 or 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs: N is 16, 32, 64 or 128");
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }

@@ -27,6 +27,14 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
   fp32).
   :func:`flash_bwd` runs the three.
 
+Head dims (``VARIANT_HEAD_DIMS``): ``sm90``, ``mma`` and Delta are built
+for 16, 32, 40, 64 and 128; ``decode`` and the old FMA kernels for 16,
+64 and 128, so a bf16 call of at most 16 rows at D = 32 or 40 runs
+``mma``.  D = 32 tiles take the 64-byte swizzle; D = 40 runs on
+zero-padded tiles (64 columns in ``sm90``, 48 in bf16 ``mma``) and stores
+only its 40 columns.  A head dim no variant takes raises, naming the
+variant.
+
 The older FMA kernels of K1, K2 and K3 (``csrc/flash_fwd.cu``, and
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` in ``csrc/flash_bwd.cu``) are
 reached by no variant rule; ``chip_smoke.py`` times them beside ``mma``
@@ -40,8 +48,8 @@ library).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
-counts the launch in its ``launches`` attribute (K1, K2 and K3 also in
-``launches_by_variant``).  Given CPU tensors it
+counts the launch in its ``launches`` attribute and by head dim in
+``launches_by_head_dim`` (K1, K2 and K3 also in ``launches_by_variant``).  Given CPU tensors it
 computes the same function with its plain PyTorch version
 (:func:`tpucfn_torch.ops.attention.dot_product_attention_with_lse` for
 K1, :func:`flash_bwd_plain` for the backward); a CUDA tensor gets the
@@ -85,7 +93,16 @@ from tpucfn_torch.ops.attention import (NEG_INF, _repeat_kv,
 
 SUBLANES = 8  # blocks are multiples of this (the JAX package's rule)
 DEFAULT_BLOCK = 64
-HEAD_DIMS = (16, 64, 128)  # the kernels' instantiations: tiny, 1B, 8B
+# Head dims each kernel variant is built for: 16 (tiny), 32 (the tiny
+# UNet's middle block), 40 (the SD-1.5 UNet's 64x64 stage), 64 (1B) and
+# 128 (8B) on the tensor-core variants and Delta; the decode variant and
+# the old fma kernels keep 16, 64 and 128.
+VARIANT_HEAD_DIMS = {"sm90": (16, 32, 40, 64, 128), "mma": (16, 32, 40, 64, 128),
+                     "decode": (16, 64, 128), "fma": (16, 64, 128)}
+# The head dims every call can run at: each variant that a call of such a
+# head dim can reach takes it, and Delta is built for each (the
+# dispatcher reads this).
+HEAD_DIMS = (16, 32, 40, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
 MAX_SPLITS = 16  # split-KV CTAs per (q-block, head, row); the combine takes <= 32
@@ -215,20 +232,24 @@ def _plain_fwd(q, k, v, *, causal, q_offset, k_offset, q_seg, kv_seg):
     return o, lse.transpose(1, 2)
 
 
-def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int) -> str:
-    """Which K1 kernel a forward of q (B, sq, h, D) over hkv KV heads
+def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int,
+                d: int | None = None) -> str:
+    """Which K1 kernel a forward of q (B, sq, h, d) over hkv KV heads
     launches.  In bf16: "decode" (mma.sync at M = 16) for at most 16
     packed rows per (batch row, KV head), sq * (h / hkv) <= 16 — every
-    serving decode step; "sm90" (wgmma tensor cores) for at least one
+    serving decode step — at a head dim it is built for (``d`` None: any);
+    "sm90" (wgmma tensor cores) for at least one
     64-row tile of them and a GQA group that divides the tile (TMA loads
     a tile as a box of 64 / group positions x group heads).  "mma"
     (mma.sync, any row count and group; 3xTF32 in fp32) otherwise: fp32,
-    bf16 at 17-63 rows (a verify pass) and groups that do not divide 64."""
+    bf16 at 17-63 rows (a verify pass), groups that do not divide 64, and
+    at most 16 rows at a head dim the decode variant lacks (32, 40)."""
     rep = h // hkv
     if dtype != torch.bfloat16:
         return "mma"
     if sq * rep <= DECODE_ROWS:
-        return "decode"
+        return ("decode" if d is None or d in VARIANT_HEAD_DIMS["decode"]
+                else "mma")
     return "sm90" if sq * rep >= TC_ROWS and TC_ROWS % rep == 0 else "mma"
 
 
@@ -354,9 +375,10 @@ def _check_inputs(q, k, v, q_seg, kv_seg):
             raise ValueError("segment ids must be (B, Sq) and (B, Sk)")
 
 
-def _check_cuda(name, alike, others=None):
+def _check_cuda(name, alike, others=None, *, variant=None):
     """What every kernel takes: the ``alike`` tensors (name -> tensor) of
-    one dtype, fp32 or bf16, at a head dim the kernels are built for, and
+    one dtype, fp32 or bf16, at a head dim in ``HEAD_DIMS`` (in those of
+    ``variant``, the kernel about to launch, when it is given), and
     the ``others``, all contiguous on the first tensor's CUDA device.
     Returns the tensors in order, each copied once if its start is not
     16-byte aligned (the kernels read 16-byte vectors; fresh allocations
@@ -370,9 +392,11 @@ def _check_cuda(name, alike, others=None):
         raise ValueError(f"dtypes {'/'.join(map(str, dtypes))} of "
                          f"{'/'.join(alike)}: the kernel takes float32 or "
                          "bfloat16, all alike")
-    if first.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {first.shape[-1]} not in the kernel's "
-                         f"{HEAD_DIMS}")
+    head_dims = HEAD_DIMS if variant is None else VARIANT_HEAD_DIMS[variant]
+    if first.shape[-1] not in head_dims:
+        which = f"the {variant} variant's" if variant else "the kernel's"
+        raise ValueError(f"head dim {first.shape[-1]} not in {which} "
+                         f"{head_dims}")
     for tname, t in tensors.items():
         if t.device != first.device:
             raise ValueError(f"{tname} on {t.device}, not {first.device}")
@@ -394,10 +418,13 @@ def _segments_on(device, q_seg, kv_seg):
 _count_lock = threading.Lock()
 
 
-def _count(wrapper, variant: str | None = None) -> None:
-    """Count one launch of ``wrapper``'s kernel (and of ``variant``)."""
+def _count(wrapper, head_dim: int, variant: str | None = None) -> None:
+    """Count one launch of ``wrapper``'s kernel (and of ``variant``, and
+    at ``head_dim``)."""
     with _count_lock:
         wrapper.launches += 1
+        by_d = wrapper.launches_by_head_dim
+        by_d[head_dim] = by_d.get(head_dim, 0) + 1
         if variant is not None:
             wrapper.launches_by_variant[variant] += 1
 
@@ -423,9 +450,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _plain_fwd(q, k, v, causal=causal, q_offset=q_offset,
                           k_offset=k_offset, q_seg=q_seg, kv_seg=kv_seg)
-    q, k, v = _check_cuda("flash_fwd", dict(q=q, k=k, v=v))
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    variant = fwd_variant(q.dtype, sq, h, hkv, d)
+    q, k, v = _check_cuda("flash_fwd", dict(q=q, k=k, v=v), variant=variant)
     if isinstance(q_offset, torch.Tensor):
         if q_offset.shape != (b,):
             raise ValueError(f"per-row q_offset must be ({b},), got "
@@ -440,7 +468,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if o.numel() == 0 or sk == 0:  # nothing to launch; rows see no key
         return o.zero_(), lse.fill_(NEG_INF)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    variant = fwd_variant(q.dtype, sq, h, hkv)
     if variant == "sm90":
         lib = _lib("flash_fwd_sm90")
         _raise_on(lib, lib.flash_fwd_sm90(
@@ -455,7 +482,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         _fwd_fma(q, k, v, o, lse, q_off, segs, causal, k_offset, bq, bk,
                  stream)
-    _count(flash_fwd, variant)
+    _count(flash_fwd, d, variant)
     return o, lse
 
 
@@ -528,6 +555,7 @@ def _fwd_mma(q, k, v, o, lse, q_off, segs, causal, k_offset, stream):
 
 flash_fwd.launches = 0
 flash_fwd.launches_by_variant = {"sm90": 0, "decode": 0, "mma": 0, "fma": 0}
+flash_fwd.launches_by_head_dim = {}
 
 # ---- backward --------------------------------------------------------------
 
@@ -602,11 +630,12 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, h, d,
         int(o.dtype == torch.bfloat16), o.device.index,
         torch.cuda.current_stream(o.device).cuda_stream), "flash_bwd_delta")
-    _count(flash_bwd_delta)
+    _count(flash_bwd_delta, d)
     return delta
 
 
 flash_bwd_delta.launches = 0
+flash_bwd_delta.launches_by_head_dim = {}
 
 
 def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
@@ -632,8 +661,9 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
         raise ValueError(f"dO {tuple(do.shape)} must have q's shape")
     if isinstance(q_offset, torch.Tensor):
         raise NotImplementedError("the backward takes int offsets only")
+    variant = (dq_variant, dkv_variant)[which](q.dtype, h, hkv)
     q, k, v, do, lse, delta, *rest = _check_cuda(
-        name, dict(q=q, k=k, v=v, dO=do), rows)
+        name, dict(q=q, k=k, v=v, dO=do), rows, variant=variant)
     dlse = rest[0] if rest else None
     segs = _segments_on(q.device, q_seg, kv_seg)
     outs = ((torch.empty_like(q),) if which == 0
@@ -648,7 +678,6 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
             b, h, hkv, sq, sk, d, int(q_offset), int(k_offset),
             int(bool(causal)), d ** -0.5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    variant = (dq_variant, dkv_variant)[which](q.dtype, h, hkv)
     if variant in ("sm90", "mma"):
         library = f"{name}_sm90" if variant == "sm90" else f"{name}_mma_sm90"
         lib = _lib(library)
@@ -665,7 +694,7 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dlse, causal, q_offset,
         fn = lib.flash_bwd_dq if which == 0 else lib.flash_bwd_dkv
         _raise_on(lib, fn(*args, int(q.dtype == torch.bfloat16),
                           q.device.index, stream), name)
-    _count(wrapper, variant)
+    _count(wrapper, d, variant)
     return outs
 
 
@@ -686,6 +715,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 flash_bwd_dq.launches = 0
 flash_bwd_dq.launches_by_variant = {"sm90": 0, "mma": 0, "fma": 0}
+flash_bwd_dq.launches_by_head_dim = {}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
@@ -704,6 +734,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, dlse=None, causal=True,
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_by_variant = {"sm90": 0, "mma": 0, "fma": 0}
+flash_bwd_dkv.launches_by_head_dim = {}
 
 
 def flash_bwd(q, k, v, o, lse, do, *, dlse=None, causal=True, q_offset=0,

@@ -39,6 +39,24 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``LayerNorm(epsilon=eps, dtype=float32)``: over the last axis,
+    in fp32, with a ``scale`` and a ``bias`` (BERT, the UNet)."""
+
+    def __init__(self, dim: int, param_dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=param_dtype,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.scale.float(),
+                            self.bias.float(), self.eps)
+
+
 def rope_frequencies(dim: int, max_pos: int, theta: float,
                      device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Precompute RoPE cos/sin tables: (max_pos, dim//2), fp32."""
@@ -69,19 +87,46 @@ AttentionFn = Callable[..., torch.Tensor]
 
 
 class Dense(nn.Linear):
-    """A bias-free linear layer whose weight is stored in ``param_dtype``
-    and used in the compute ``dtype`` (flax ``DenseGeneral(dtype=...,
-    param_dtype=...)``)."""
+    """A linear layer, bias-free unless ``bias``, whose weight (and bias)
+    is stored in ``param_dtype`` and used in the compute ``dtype`` (flax
+    ``DenseGeneral(dtype=..., param_dtype=..., use_bias=...)``)."""
 
     def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
-                 param_dtype: torch.dtype | None = None, device=None):
-        super().__init__(n_in, n_out, bias=False, dtype=param_dtype or dtype,
+                 param_dtype: torch.dtype | None = None, device=None, *,
+                 bias: bool = False):
+        super().__init__(n_in, n_out, bias=bias, dtype=param_dtype or dtype,
                          device=device)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+def bind_state_dict(model: nn.Module, params, *, device=None,
+                    trainable: bool = False) -> nn.Module:
+    """``model`` (built on the meta device) over ``params``, its state
+    dict: tensors already on ``device`` in their storage dtype are used
+    as they are, not copied, so several models can share one set of
+    weights and a training loss can build its model over the trainer's
+    parameters in each call.  Frozen unless ``trainable``; then
+    ``nn.Parameter`` values stay the very objects passed, so their
+    gradients land where the caller looks."""
+    want = model.state_dict()
+    model.load_state_dict(
+        {name: params[name].to(device=device, dtype=want[name].dtype)
+         for name in want}, strict=True, assign=True)
+    return model if trainable else model.requires_grad_(False)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init in place: a normal truncated at ±2σ,
+    σ = sqrt(1/fan_in)/0.8796 (the truncation's variance correction)."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
 
 
 class CausalSelfAttention(nn.Module):

@@ -31,6 +31,8 @@ from tpucfn_torch.models.layers import (
     CausalSelfAttention,
     RMSNorm,
     SwiGLUMLP,
+    bind_state_dict,
+    lecun_normal_,
     rope_frequencies,
 )
 from tpucfn_torch.ops.attention import dot_product_attention
@@ -197,11 +199,8 @@ class Llama(nn.Module):
         passed, so their gradients land where the caller looks."""
         with torch.device("meta"):
             model = cls(cfg, attention_fn=attention_fn, decode=decode)
-        want = model.state_dict()
-        model.load_state_dict(
-            {name: params[name].to(device=device, dtype=want[name].dtype)
-             for name in want}, strict=True, assign=True)
-        return model if trainable else model.requires_grad_(False)
+        return bind_state_dict(model, params, device=device,
+                               trainable=trainable)
 
     def init_cache(self, batch: int, capacity: int | None = None,
                    device=None) -> DecodeCache:
@@ -309,9 +308,7 @@ def init_llama_params(cfg: LlamaConfig, *, generator: torch.Generator,
         elif name == "embed_tokens.weight":
             w.normal_(0.0, cfg.dim ** -0.5, generator=generator)
         else:  # nn.Linear weight (out, in): fan_in = in
-            std = (1.0 / meta.shape[1]) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            lecun_normal_(w, meta.shape[1], generator)
         params[name] = w.to(meta.dtype)
     return params
 
