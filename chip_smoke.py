@@ -103,7 +103,9 @@ Phases, each printed as one JSON line:
    with every request served within ``--drain-grace``; ``router_*`` and
    ``serve_spec_*`` series on the live ``/metrics``; the heartbeats
    advance; ``cli obs --run-dir`` on D's parent gives a request
-   breakdown with ``spec_propose_s`` and ``spec_verify_s``.
+   breakdown with ``spec_propose_s`` and ``spec_verify_s``; with every
+   request in, ``cli obs profile --seconds 2`` gets a 200 from ``POST
+   /profile`` and a trace that names K1's ``decode`` kernel.
 10. ``train_llama3_1b``: ``Trainer`` -> ``Llama`` (fp32 master weights,
    bf16 compute, full remat, chunked CE with z-loss, the example's
    clip + AdamW + warmup-cosine chain) takes 4 steps on a fixed
@@ -161,6 +163,13 @@ Phases, each printed as one JSON line:
    drain latency, each boot's time to its first heartbeat and to its
    first step, the heartbeats' largest gaps, the step with the planes on
    against the same run's with them off, and steps inside the capture.
+   Then the read side over the drill's run dir, through the port's CLI:
+   ``obs goodput --json`` (the buckets sum to wall within 5%, restart
+   downtime > 0 and the kill's incident carries downtime), ``obs
+   postmortem`` for the kill's incident (the bundle written, naming that
+   incident and rank 0 as the failed host), ``trace critpath`` (a step's
+   compute attributed) and ``trace export`` (a Chrome trace that parses);
+   printed: the run's wall time by goodput bucket.
 14. ``planes_llama3_1b``: the launch planes at llama3-1b width (2
    layers), in subprocesses, with the kernel directory emptied (the build
    phase's libraries set aside and put back after).  (a) ``create-stack
@@ -186,7 +195,21 @@ Phases, each printed as one JSON line:
    launches.  Printed: time_to_first_step cold and warm, the build
    seconds against the fetch seconds, data wait served and local, the
    degrade latency and batch, the coordinator's downtime.
-15. ``train_unet_sd15``: the port's SD-1.5 example
+15. ``provision_llama3_1b``: the provisioner policy loop, in
+   subprocesses: ``create-stack --accelerator h100-2``, then ``launch
+   --ft --input-hosts 1 --input-cmd "python -m tpucfn_torch.cli data
+   serve ..." --provision-policy goodput --provision-interval 1
+   --provision-cooldown 300`` runs the 2-layer example (34 steps, no
+   checkpoint write before the end) fed by the input host.  Gates: rc 0;
+   exactly one ``provision_decision``, a ``data_rich`` shrink at a
+   ``data_wait`` share under 0.02; ``provision_shrink_total`` 1 and
+   ``provision_grow_total`` 0; one launch, no gang restart, budget 0;
+   the stream degrades to local loading once, after the shrink; the 34
+   losses within 1e-3 relative of the uninterrupted run; every step
+   4/2/2/2 K1/K2/K3 ``sm90``/Delta launches; ``obs goodput`` buckets sum
+   to wall within 5%.  Printed: the step, compile, data_wait and ckpt
+   shares of wall before and after the shrink.
+16. ``train_unet_sd15``: the port's SD-1.5 example
    (``tpucfn_torch/examples/sd15_unet.py``) through its ``main(argv)``:
    ``UNetConfig.sd15()`` at 64x64x4 latents, a 77 x 768 context, batch
    2, fp32 params, EMA 0.9999, 6 steps on one repeated batch.  Gates:
@@ -201,7 +224,7 @@ Phases, each printed as one JSON line:
    matmul, norm, optimizer).  Then the tiny fp32 UNet at 16x16, kernel
    path against plain path over 6 AdamW steps: losses within 1e-4,
    every K1, K2 and K3 launch on ``mma``, at head dims 16 and 32.
-16. ``train_bert_base``: the port's BERT example
+17. ``train_bert_base``: the port's BERT example
    (``tpucfn_torch/examples/bert_base.py``): ``BertConfig.base()``, seq
    128, batch 32, 10 steps on one repeated batch.  Gates: finite losses,
    the last below the first, and no K1, K2, K3 or Delta launch (its
@@ -241,7 +264,7 @@ PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "serve_tiny_fp32", "serve_spec_llama3_1b", "serve_router_llama3_1b",
           "serve_cli_llama3_1b", "train_llama3_1b", "train_tiny_fp32",
           "example_llama3_1b", "ft_llama3_1b", "planes_llama3_1b",
-          "train_unet_sd15", "train_bert_base")
+          "provision_llama3_1b", "train_unet_sd15", "train_bert_base")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -1908,10 +1931,17 @@ def phase_serve_router_llama3_1b(results):
     return out
 
 
+SERVE_PROFILE_S = 2.0
+# K1's decode variant as the profiler names it
+SERVE_DECODE_KERNEL = "flash_fwd_decode_kernel"
+
+
 def phase_serve_cli_llama3_1b(results):
     """``python -m tpucfn_torch.cli serve`` at llama3-1b, 2 replicas, a
-    self draft on each, under ``TPUCFN_FT_DIR``, stopped by SIGTERM once
-    every request is in; then ``cli obs`` over its run dir."""
+    self draft on each, under ``TPUCFN_FT_DIR``: once every request is
+    in, ``cli obs profile`` asks its endpoint for a 2 s ``POST
+    /profile`` capture, which must name K1's decode kernel; then SIGTERM,
+    and ``cli obs`` over its run dir."""
     import os
     import shutil
     import signal
@@ -1958,6 +1988,27 @@ def phase_serve_cli_llama3_1b(results):
                 metrics = {}
         live = sorted(k for k in metrics
                       if k.startswith(("router_", "serve_spec_")))
+        # POST /profile while the requests decode (once a decode round is
+        # in the trace: the first prefills also build the replicas' RoPE
+        # tables), through the port's ``obs profile``
+        def decoding():
+            text = "".join(f.read_text() for f in
+                           (run / "trace").glob("trace-*.jsonl"))
+            return any(f'"name": "{n}"' in text
+                       for n in ("decode_round", "spec_propose"))
+
+        while not decoding():
+            assert proc.poll() is None, "".join(err_lines)
+            assert time.monotonic() - t0 < 600, "no decode round traced"
+            time.sleep(0.02)
+        host = url[0].split("//", 1)[1].split("/", 1)[0]
+        t_profile = time.monotonic()
+        rc, body = _cli_main(["obs", "profile", "--host", host,
+                              "--seconds", str(SERVE_PROFILE_S)])
+        profile_s = time.monotonic() - t_profile
+        assert rc == 0, (rc, body, "".join(err_lines)[-4000:])
+        capture = json.loads(body)
+        profiled = _trace_kernels(Path(capture["artifact"]) / "trace.json")
         hb = ft / "hb-host000.jsonl"
         beat0 = json.loads(hb.read_text().splitlines()[-1])
         t_term = time.monotonic()
@@ -1991,8 +2042,16 @@ def phase_serve_cli_llama3_1b(results):
     spec_rows = [r for r in rows if r["spec_propose_s"] > 0]
     assert spec_rows and all(r["spec_verify_s"] > 0 for r in spec_rows), \
         rows
+    decode = {k: v for k, v in profiled.items() if SERVE_DECODE_KERNEL in k}
+    assert decode, {k: v for k, v in profiled.items() if "flash" in k}
     shutil.rmtree(root, ignore_errors=True)
     return {"rc": proc.returncode, "requests": n,
+            "profile": {"seconds": capture["seconds"],
+                        "dur_s": capture["dur_s"], "client_s": profile_s,
+                        "decode_kernels": decode,
+                        "flash_kernels": {k: v for k, v in profiled.items()
+                                          if "flash_" in k},
+                        "distinct_kernels": len(profiled)},
             "drain_s": drain_s, "drain_grace_s": drain_grace,
             "run_s": time.monotonic() - t0,
             "live_series": live, "heartbeats": len(beats),
@@ -2733,6 +2792,62 @@ def _mean(xs):
     return sum(xs) / len(xs) if xs else None
 
 
+# The goodput report's buckets sum to its wall by construction (idle and
+# restart downtime are residuals); the gate allows float noise and
+# records that end within a window's last instant.
+GOODPUT_SUM_TOL = 0.05
+# The buckets each goodput summary prints: where the loop's wall went.
+GOODPUT_SHOWN = ("productive_step", "compile", "compile_cached",
+                 "compile_fetched", "data_wait", "ckpt", "lost_work",
+                 "restart_downtime", "idle")
+
+
+def _cli_main(argv):
+    """The port's CLI (``python -m tpucfn_torch.cli``) in this process:
+    its exit code and standard output."""
+    import contextlib
+    import io
+
+    from tpucfn_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _goodput_report(run_dir):
+    """``obs goodput --json`` over ``run_dir``, its buckets held to sum
+    to its wall within GOODPUT_SUM_TOL."""
+    rc, text = _cli_main(["obs", "goodput", "--run-dir", str(run_dir),
+                          "--json"])
+    report = json.loads(text)
+    total = sum(report["buckets"].values())
+    assert (rc == 0 and report["num_hosts"] >= 1 and report["wall_s"] > 0
+            and abs(total - report["wall_s"])
+            <= GOODPUT_SUM_TOL * report["wall_s"]), (rc, report)
+    return report
+
+
+def _goodput_summary(report):
+    """Wall seconds, each shown bucket's share of it, the incidents."""
+    wall = report["wall_s"]
+    return {"wall_s": wall, "goodput_ratio": report["goodput_ratio"],
+            "shares": {b: report["buckets"][b] / wall
+                       for b in GOODPUT_SHOWN},
+            "sum_over_wall": sum(report["buckets"].values()) / wall,
+            "restart_downtime_s": report["restart_downtime_s"],
+            "lost_steps": report["lost_steps"],
+            "incidents": [{k: i[k] for k in ("incident", "action",
+                                              "planned", "downtime_s")}
+                          for i in report["incidents"]]}
+
+
+def _render_shares(summary):
+    return (f"wall {summary['wall_s']:.2f} s, " + ", ".join(
+        f"{b} {v:.4f}" for b, v in summary["shares"].items() if v))
+
+
 def phase_ft_llama3_1b(results):
     """``create-stack`` and ``launch --ft`` drive the port's example at
     llama3-1b width (2 layers) under the gang coordinator, in
@@ -3031,6 +3146,53 @@ def phase_ft_llama3_1b(results):
                 "in_capture": in_capture, "in_capture_mean": cap_mean,
                 "capture_cost_ms": (None if on_free is None
                                     else cap_mean - on_free)}
+
+            # 10. the read side over the drill's run dir: the goodput
+            # report (the kill's downtime attributed to its incident),
+            # the kill's postmortem bundle, the critical path and the
+            # merged Chrome trace
+            kill_incident = incidents[0]["incident"]
+            report = _goodput_report(run_dir)
+            kill_row = next(i for i in report["incidents"]
+                            if i["incident"] == kill_incident)
+            assert report["restart_downtime_s"] > 0, report
+            assert (kill_row["downtime_s"] or 0) > 0 \
+                and not kill_row["planned"], kill_row
+            rc, pm = _cli_main(["obs", "postmortem", "--run-dir",
+                                str(run_dir), "--incident",
+                                str(kill_incident), "--json"])
+            pm = json.loads(pm)
+            bundle = Path(pm["bundle"])
+            pm_detect = next(e for e in pm["events"]
+                             if e["kind"] == "detect")
+            assert (rc == 0 and (bundle / "incident.json").is_file()
+                    and (bundle / "report.md").is_file()
+                    and pm["incident"]["incident"] == kill_incident
+                    and [f["host"] for f in pm_detect["failures"]] == [0]), (
+                rc, sorted(p.name for p in bundle.iterdir()),
+                pm["incident"], pm_detect)
+            rc, cp = _cli_main(["trace", "critpath", "--run-dir",
+                                str(run_dir), "--json"])
+            cp = json.loads(cp)
+            assert rc == 0 and any(r["compute"] > 0 for r in cp["steps"]), cp
+            rc, ex_out = _cli_main(["trace", "export", "--run-dir",
+                                    str(run_dir), "--json"])
+            exported = json.loads(ex_out)
+            chrome = json.loads(Path(exported["out"]).read_text())
+            assert rc == 0 and chrome["traceEvents"], exported
+            out["read_side"] = {
+                "goodput": _goodput_summary(report),
+                "kill_incident": kill_row,
+                "postmortem": {"bundle_files": sorted(
+                    p.name for p in bundle.iterdir()),
+                    "timeline_events": len(pm["timeline"]),
+                    "flight_rows": len(pm["flight"]),
+                    "notes": pm["notes"]},
+                "critpath": {"steps": len(cp["steps"]),
+                             "shares": cp["shares"],
+                             "coverage_median": cp["coverage_median"],
+                             "crosscheck": cp["crosscheck"]},
+                "chrome_trace_events": len(chrome["traceEvents"])}
         except Exception:
             # what the coordinator and the rank said, for the failure
             for path in (ft_dir / "events.jsonl", log_out):
@@ -3048,6 +3210,8 @@ def phase_ft_llama3_1b(results):
               f"{out['step_ms']['planes_on_no_write']:.2f}/"
               f"{out['step_ms']['planes_off_no_write']:.2f}, in capture "
               f"{cap_mean:.2f}, phase {out['phase_s']:.1f} s", flush=True)
+        print(f"ft_llama3_1b goodput on {results.get('card')}: "
+              + _render_shares(out["read_side"]["goodput"]), flush=True)
         print(json.dumps({"ft_llama3_1b": out}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3415,7 +3579,219 @@ def phase_planes_llama3_1b(results):
     return out
 
 
-# ---- phases 15 and 16: the SD-1.5 UNet and BERT-base ----------------------
+# ---- phase 15: the provisioner policy loop ----------------------------------
+# FT_JOB (llama3-1b width, 2 layers, 34 steps, no checkpoint write before
+# the end) on h100-2: one trainer served by one input host, the
+# coordinator running the goodput policy every PROVISION_INTERVAL_S.  The
+# served trainer's data_wait share sits under the shrink threshold (the
+# reference's default), so the policy calls the fleet data_rich and stops
+# the input host; the cooldown keeps that the run's one actuation.
+# The input link's buffers are bounded as the planes drill bounds them
+# (one queued batch, 64 KB socket buffers a side): with the kernel's
+# default loopback buffers the stream can hold the whole run's batches
+# ahead of the loop, and a trainer that never reads past them never sees
+# its input host go.  So the degrade lands about 20 batches (buffers
+# and prefetchers) after the shrink, inside the run.
+PROVISION_INTERVAL_S = 1.0
+PROVISION_COOLDOWN_S = 300.0
+PROVISION_SHRINK_THRESHOLD = 0.02
+# The buckets whose shares the phase prints before and after the shrink.
+PROVISION_BUCKETS = ("step", "compile", "compile_cached", "data_wait",
+                     "ckpt")
+
+
+def _ledger_shares(records, lo, hi):
+    """Each bucket's seconds over ``[lo, hi)`` (phase records by the time
+    they were stamped, at the phase's end) as a share of ``hi - lo``."""
+    wall = hi - lo
+    sums = dict.fromkeys(PROVISION_BUCKETS, 0.0)
+    for r in records:
+        if r["kind"] == "phase" and lo <= r["t"] < hi \
+                and r["bucket"] in sums:
+            sums[r["bucket"]] += r["dur_s"]
+    return {"wall_s": wall, "steps": sum(
+        1 for r in records if r["kind"] == "phase" and lo <= r["t"] < hi
+        and r["bucket"] in ("step", "compile", "compile_cached")),
+        **{b: v / wall for b, v in sums.items()}}
+
+
+def phase_provision_llama3_1b(results):
+    """``create-stack --accelerator h100-2`` and ``launch --ft
+    --input-hosts 1 --provision-policy goodput``, in subprocesses, the
+    example at llama3-1b width (2 layers) fed by the input host: the
+    policy's one shrink, the stream's degrade to local loading at the
+    exact cursor, no restart; then ``obs goodput`` over the run."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from tpucfn_torch.examples import llama3_8b_fsdp as ex
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="provision_llama3_1b-"))
+    state, name = root / "state", "provision"
+    run_dir = state / "clusters" / name
+    ft_dir = run_dir / "ft"
+    out = {"card": results.get("card"), "steps": FT_STEPS,
+           "provision_interval_s": PROVISION_INTERVAL_S,
+           "provision_cooldown_s": PROVISION_COOLDOWN_S,
+           "shrink_threshold": PROVISION_SHRINK_THRESHOLD,
+           "whole_run_in_phase": "whole_2_layers" not in results}
+    cli = [sys.executable, "-m", "tpucfn_torch.cli", "--state-dir",
+           str(state)]
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    env.pop("TPUCFN_INPUT_ADDRS", None)
+    log_out, log_err = root / "launch.out", root / "launch.err"
+    try:
+        whole = _whole_2_layers(results)
+        r = subprocess.run(cli + ["create-stack", "--name", name,
+                                  "--accelerator", "h100-2"], env=env,
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0, (r.stdout, r.stderr)
+        # the shards the input host serves and the trainer falls back to,
+        # staged before either starts, as the example stages them
+        args = ex.build_parser().parse_args(
+            FT_JOB + ["--run-dir", str(run_dir)])
+        shards = ex.stage_data(args, ex.model_config(args), run_dir)
+        input_base = _free_ports(1)[0] - 1  # host 1 binds the base + 1
+        serve = (f"{sys.executable} -m tpucfn_torch.cli data serve --shards "
+                 f"{shards[0].parent} --batch-size {args.batch_size} "
+                 "--host 127.0.0.1 --idle-exit 2 --queue-batches 1 "
+                 "--sndbuf-kb 64")
+        wall0 = time.time()
+        with open(log_out, "w") as fo, open(log_err, "w") as fe:
+            proc = subprocess.Popen(
+                cli + ["launch", "--name", name, "--ft",
+                       "--ft-restart-budget", "0",
+                       "--ft-heartbeat-interval", str(FT_HEARTBEAT_S),
+                       "--ft-startup-grace", str(FT_STARTUP_GRACE_S),
+                       "--input-hosts", "1", "--input-port", str(input_base),
+                       "--input-cmd", serve,
+                       "--provision-policy", "goodput",
+                       "--provision-interval", str(PROVISION_INTERVAL_S),
+                       "--provision-cooldown", str(PROVISION_COOLDOWN_S),
+                       "--", "env", f"TPUCFN_INPUT_RCVBUF={PLANES_RCVBUF}",
+                       sys.executable, "-m",
+                       "tpucfn_torch.examples.llama3_8b_fsdp", *FT_JOB,
+                       "--ckpt-every", "1000", "--run-dir", str(run_dir)],
+                env=env, cwd=HERE, stdout=fo, stderr=fe,
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        out["launch_wall_s"] = time.time() - wall0
+        stdout = log_out.read_text()
+        if rc != 0:
+            print(log_err.read_text()[-6000:], file=sys.stderr)
+        assert rc == 0 and "launch finished rc=0" in stdout, (
+            rc, stdout[-3000:])
+        try:
+            # the coordinator: one decision, a data_rich shrink, and no
+            # restart of the trainer
+            ev = _jsonl(ft_dir / "events.jsonl")
+            kinds = [e["kind"] for e in ev]
+            out["events"] = kinds
+            decisions = [e for e in ev if e["kind"] == "provision_decision"]
+            assert [(d["action"], d["signal"]) for d in decisions] == [
+                ("shrink_input_hosts", "data_rich")], decisions
+            decision = decisions[0]
+            out["decision"] = decision
+            assert decision["data_wait_share"] < PROVISION_SHRINK_THRESHOLD, \
+                decision
+            actuated = next(e for e in ev if e["kind"] == "provision_actuated")
+            assert actuated["action"] == "shrink_input_hosts", actuated
+            sup = json.loads((ft_dir / "supervisor.json").read_text())
+            metrics = sup["metrics"]
+            out["provision_metrics"] = {k: v for k, v in metrics.items()
+                                        if k.startswith("provision_")}
+            assert (metrics.get("provision_shrink_total"),
+                    metrics.get("provision_grow_total", 0)) == (1, 0), metrics
+            assert (kinds.count("launch") == 1 and "decide" not in kinds
+                    and "drain" not in kinds), kinds
+            assert sup["budget"]["used"] == 0, sup["budget"]
+            rank_pid = next(e for e in ev if e["kind"] == "launch")["pids"][0]
+            beats = _jsonl(ft_dir / "hb-host000.jsonl")
+            assert {b["pid"] for b in beats} == {rank_pid}, (
+                rank_pid, {b["pid"] for b in beats})
+
+            # the input plane: served until the shrink, then local from
+            # the exact cursor, once
+            rows = _jsonl(run_dir / "logs" / "train-host000.jsonl")
+            loss_rows = [r for r in rows if "loss" in r]
+            degraded = [r for r in rows if "input_degraded_cursor" in r]
+            served = [json.loads(line) for line in stdout.splitlines()
+                      if line.startswith('{"served_s"')]
+            assert len(degraded) == 1, degraded
+            deg = degraded[0]
+            assert deg["input_degraded_wall"] >= decision["ts"], (
+                deg, decision)
+            assert served and served[0]["connections"] >= 1 \
+                and served[0]["batches_streamed"] >= 1, served
+            out["input"] = {
+                "degraded_at_batch": int(deg["input_degraded_cursor"]),
+                "degraded_log_step": deg["step"],
+                "degrade_after_decision_s":
+                    deg["input_degraded_wall"] - decision["ts"],
+                "decision_after_launch_s": decision["ts"] - wall0,
+                "service": served[0],
+                "steps_before_decision": sum(
+                    1 for r in loss_rows if r["time"] <= decision["ts"])}
+
+            # the losses: every step's within 1e-3 of the uninterrupted run
+            losses = {r["step"]: r["loss"] for r in loss_rows}
+            steps = list(range(1, FT_STEPS + 1))
+            assert sorted(losses) == steps, sorted(losses)
+            rel = max(abs(losses[i] - whole["losses"][i])
+                      / abs(whole["losses"][i]) for i in steps)
+            out["losses_max_rel_diff"] = rel
+            assert rel <= EXAMPLE_LOSS_REL_TOL, (losses, whole["losses"])
+            # 4/2/2/2 K1/K2/K3 sm90/Delta every step, from step 0
+            results["provision_launches"] = _launches_each_step(rows)
+            out["launches"] = results["provision_launches"]
+
+            # where the loop's wall went, by the goodput ledger: the whole
+            # run (obs goodput), and before and after the shrink
+            report = _goodput_report(run_dir)
+            out["goodput"] = _goodput_summary(report)
+            ledger = _jsonl(run_dir / "goodput" / "goodput-host000.jsonl")
+            t_open = ledger[0]["t"]
+            t_end = ledger[-1]["t"]
+            out["shares_before_shrink"] = _ledger_shares(
+                ledger, t_open, actuated["ts"])
+            out["shares_after_shrink"] = _ledger_shares(
+                ledger, actuated["ts"], t_end + 1e-9)
+        except Exception:
+            for path in (ft_dir / "events.jsonl", log_out, log_err):
+                if path.exists():
+                    print(f"--- {path.name}\n{path.read_text()[-8000:]}",
+                          file=sys.stderr)
+            print(json.dumps({"provision_llama3_1b_partial": out},
+                             default=str), file=sys.stderr)
+            raise
+        out["phase_s"] = time.perf_counter() - t_phase
+        before, after = out["shares_before_shrink"], out["shares_after_shrink"]
+        print(f"provision_llama3_1b on {results.get('card')}: shrink at "
+              f"data_wait share {decision['data_wait_share']:.6f} "
+              f"{out['input']['decision_after_launch_s']:.2f} s after "
+              f"launch (step {out['input']['steps_before_decision']}), "
+              f"degraded at batch {out['input']['degraded_at_batch']}; "
+              "shares before / after: " + ", ".join(
+                  f"{b} {before[b]:.4f} / {after[b]:.4f}"
+                  for b in PROVISION_BUCKETS)
+              + f"; run: {_render_shares(out['goodput'])}; phase "
+              f"{out['phase_s']:.1f} s", flush=True)
+        print(json.dumps({"provision_llama3_1b": out}), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---- phases 16 and 17: the SD-1.5 UNet and BERT-base ----------------------
 # The UNet's attention per training step, no remat: each of the five
 # transformer blocks of the 64x64 stage (two down, three up) runs a self-
 # and a cross-attention at head dim 40 on the kernels, one K1, K2, K3 and
@@ -3668,6 +4044,7 @@ def _kernels_line(results):
     packed = results["example_packed_launches"]
     ft = results["ft_launches"]
     planes = results["planes_launches"]
+    provision = results["provision_launches"]
     serve = results["serve_launches"]
     serve_tiny = results["serve_tiny_launches"]
     spec, router = results["spec_launches"], results["router_launches"]
@@ -3727,6 +4104,7 @@ def _kernels_line(results):
                "example_llama3_1b_packed": packed["k1_sm90"],
                "ft_llama3_1b": ft["k1_sm90"],
                "planes_llama3_1b": planes["k1_sm90"],
+               "provision_llama3_1b": provision["k1_sm90"],
                "train_unet_sd15": unet["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
@@ -3754,6 +4132,7 @@ def _kernels_line(results):
                "example_llama3_1b_packed": packed["delta"],
                "ft_llama3_1b": ft["delta"],
                "planes_llama3_1b": planes["delta"],
+               "provision_llama3_1b": provision["delta"],
                "train_unet_sd15": unet["delta"],
                "train_unet_tiny_fp32": unet_tiny["delta"]}, bwd,
               "train_llama3_1b",
@@ -3764,6 +4143,7 @@ def _kernels_line(results):
                "example_llama3_1b_packed": packed["k2_sm90"],
                "ft_llama3_1b": ft["k2_sm90"],
                "planes_llama3_1b": planes["k2_sm90"],
+               "provision_llama3_1b": provision["k2_sm90"],
                "train_unet_sd15": unet["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
@@ -3779,6 +4159,7 @@ def _kernels_line(results):
                "example_llama3_1b_packed": packed["k3_sm90"],
                "ft_llama3_1b": ft["k3_sm90"],
                "planes_llama3_1b": planes["k3_sm90"],
+               "provision_llama3_1b": provision["k3_sm90"],
                "train_unet_sd15": unet["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
@@ -3835,6 +4216,8 @@ def main(argv=None) -> int:
            "example_llama3_1b": lambda: phase_example_llama3_1b(results),
            "ft_llama3_1b": lambda: phase_ft_llama3_1b(results),
            "planes_llama3_1b": lambda: phase_planes_llama3_1b(results),
+           "provision_llama3_1b":
+               lambda: phase_provision_llama3_1b(results),
            "train_unet_sd15": lambda: phase_train_unet_sd15(results),
            "train_bert_base": lambda: phase_train_bert_base(results)}
     for name in wanted:

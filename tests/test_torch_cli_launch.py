@@ -14,10 +14,12 @@ drills do:
   blacklists that step and the next relaunch resumes from the previous
   one, with the losses again an uninterrupted run's.
 
-Every launch option whose plane the port lacks (the provisioner policy
-loop) exits 2 naming its ROADMAP item; so does ``--backend gcp``.  The
-planes ported since (input hosts, compile cache, supervision, chaos
-proxies) take their flags, with the JAX package's usage errors.  The steps are sized (tiny
+The launch planes (input hosts, compile cache, supervision, chaos
+proxies, the provisioner policy loop) take their flags, with the JAX
+package's usage errors; ``--backend gcp`` exits 2.  After the kill drill,
+the port's read side (``obs goodput``, ``trace critpath``, ``obs
+postmortem``, ``forensics diff``, ``obs diff``) equals the JAX package's
+on its run dir, and ``ft status`` renders it.  The steps are sized (tiny
 Llama, 16 x 256 tokens, ~0.2 s a step on an idle CPU) and counted (16,
 faults at 3 and 4) so that a fault at a heartbeat-reported step lands
 well before the run ends, also on a loaded machine, where the heartbeat
@@ -98,7 +100,20 @@ def _drill(tmp_path, name, events):
     return state, run_dir, r
 
 
-def test_kill_is_recovered_with_the_budget(tmp_path, uninterrupted):
+def _both_clis(capsys, *argv):
+    """(rc, stdout) of the port's CLI and of the JAX package's, in this
+    process, on the same arguments."""
+    from tpucfn.cli.main import main as jax_main
+    from tpucfn_torch.cli import main
+
+    out = []
+    for cli in (main, jax_main):
+        rc = cli(list(argv))
+        out.append((rc, capsys.readouterr().out))
+    return out
+
+
+def test_kill_is_recovered_with_the_budget(tmp_path, uninterrupted, capsys):
     state, run_dir, r = _drill(tmp_path, "kill",
                                [{"action": "kill", "at_step": 3, "host": 0}])
     assert r.returncode == 0, r.stderr[-3000:]
@@ -114,6 +129,86 @@ def test_kill_is_recovered_with_the_budget(tmp_path, uninterrupted):
                if line.startswith("resumed from step")]
     assert len(resumed) == 1 and 1 <= resumed[0] < 16
     assert _losses(run_dir) == uninterrupted
+    _read_side_equals_the_references(capsys, tmp_path, state, run_dir,
+                                     decides[0]["incident"])
+
+
+def _read_side_equals_the_references(capsys, tmp_path, state, run_dir,
+                                     incident):
+    """The run dir the drill left, read by the port's commands and by the
+    JAX package's: the goodput report, the critical path, the postmortem
+    and the two diffs are equal.  Not compared: each postmortem's
+    ``bundle``, the directory it was told to write to."""
+    # the loop wrote its goodput ledger
+    assert (run_dir / "goodput" / "goodput-host000.jsonl").is_file()
+    (rc, port), (jrc, ref) = _both_clis(capsys, "obs", "goodput",
+                                        "--run-dir", str(run_dir), "--json")
+    assert rc == jrc == 0 and json.loads(port) == json.loads(ref)
+    report = json.loads(port)
+    assert abs(sum(report["buckets"].values()) - report["wall_s"]) \
+        <= 0.05 * report["wall_s"]
+    assert report["restart_downtime_s"] > 0
+    kill = [i for i in report["incidents"] if i["incident"] == incident]
+    assert kill and kill[0]["downtime_s"] > 0 and not kill[0]["planned"]
+    (rc, port), (jrc, ref) = _both_clis(capsys, "trace", "critpath",
+                                        "--run-dir", str(run_dir), "--json")
+    assert rc == jrc == 0 and json.loads(port) == json.loads(ref)
+    assert json.loads(port)["steps"]
+    from tpucfn.cli.main import main as jax_main
+    from tpucfn_torch.cli import main
+
+    bundles = [tmp_path / "pm-port", tmp_path / "pm-jax"]
+    reports = []
+    for cli, bundle in zip((main, jax_main), bundles):
+        assert cli(["obs", "postmortem", "--run-dir", str(run_dir),
+                    "--incident", str(incident), "--out", str(bundle),
+                    "--json"]) == 0
+        reports.append(json.loads(capsys.readouterr().out))
+        assert reports[-1].pop("bundle") == str(bundle)
+    assert reports[0] == reports[1]
+    assert reports[0]["incident"]["incident"] == incident
+    detect = next(e for e in reports[0]["events"] if e["kind"] == "detect")
+    assert [f["host"] for f in detect["failures"]] == [0]
+    assert sorted(p.name for p in bundles[0].iterdir()) == sorted(
+        p.name for p in bundles[1].iterdir())
+    # ft status renders the drill's state dir
+    assert main(["--state-dir", str(state), "ft", "status", "--name",
+                 "kill", "--json"]) == 0
+    status = json.loads(capsys.readouterr().out)
+    assert [h["host"] for h in status["hosts"]] == [0]
+    assert status["budget"]["used"] == 1 and status["events"]
+    assert main(["--state-dir", str(state), "ft", "status", "--name",
+                 "kill"]) == 0
+    assert "# ft fleet view" in capsys.readouterr().out
+    # forensics diff: a bundle against itself and against a copy with
+    # its downtime changed
+    import shutil
+
+    changed = tmp_path / "pm-changed"
+    shutil.copytree(bundles[0], changed)
+    inc = json.loads((changed / "incident.json").read_text())
+    inc["incident"]["downtime_s"] += 1.5
+    (changed / "incident.json").write_text(json.dumps(inc))
+    for other in (bundles[0], changed):
+        for flags in (["--json"], []):
+            (rc, port), (jrc, ref) = _both_clis(
+                capsys, "forensics", "diff", str(bundles[0]), str(other),
+                *flags)
+            assert rc == jrc == 0 and port == ref
+    # obs diff: the run's ledger row against a copy with a share changed
+    ledger = tmp_path / "goodput_ledger.jsonl"
+    assert main(["obs", "goodput", "--run-dir", str(run_dir), "--ledger",
+                 str(ledger)]) == 0
+    capsys.readouterr()
+    row = json.loads(ledger.read_text())
+    row["shares"]["data_wait"] += 0.1
+    row["goodput_ratio"] -= 0.1
+    with open(ledger, "a") as f:
+        f.write(json.dumps(row) + "\n")
+    for flags in (["--json"], []):
+        (rc, port), (jrc, ref) = _both_clis(
+            capsys, "obs", "diff", "--ledger", str(ledger), *flags)
+        assert rc == jrc == 0 and port == ref
 
 
 def test_preempt_notice_drains_without_budget(tmp_path, uninterrupted):
@@ -192,27 +287,6 @@ def test_cluster_commands(tmp_path, capsys):
         cli("create-stack", "--name", "c2", "--accelerator", "v5e-8")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--provision-policy", "goodput"], "B7"),
-    (["--provision-interval", "1"], "B7"),
-    (["--provision-grow-threshold", "0.3"], "B7"),
-    (["--provision-shrink-threshold", "0.1"], "B7"),
-    (["--provision-cooldown", "9"], "B7"),
-    (["--provision-goodput-dir", "/g"], "B7"),
-    (["--defer-input-plane"], "B7"),
-], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_unported_launch_planes_are_refused(flags, item, tmp_path, capsys):
-    from tpucfn_torch.cli import main
-
-    marker = tmp_path / "ran"
-    rc = main(["--state-dir", str(tmp_path / "state"), "launch", "--name",
-               "x", *flags, "--", sys.executable, "-c",
-               f"open({str(marker)!r}, 'w')"])
-    assert rc == 2 and not marker.exists()
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 {item}" in err and "not ported" in err
-
-
 def _free_port():
     import socket
 
@@ -241,11 +315,24 @@ NET_RST = '{"events": [{"action": "net_rst", "at_s": 60}]}'
     (["--chaos-proxy", "7641"], "wants LISTEN:HOST:PORT"),
     (["--ft", "--chaos", NET_RST], "need at least one --chaos-proxy"),
     (["--ft", "--chaos", NET_RST, "--chaos-proxy", "0:127.0.0.1:7641"], 0),
+    (["--provision-policy", "goodput"], "--provision-policy needs --ft"),
+    (["--ft", "--provision-policy", "goodput"],
+     "--provision-policy needs --input-hosts N"),
+    (["--provision-interval", "1"], 0),
+    (["--provision-grow-threshold", "0.3"], 0),
+    (["--provision-shrink-threshold", "0.1"], 0),
+    (["--provision-cooldown", "9"], 0),
+    (["--provision-goodput-dir", "/g"], 0),
+    (["--defer-input-plane"], "--defer-input-plane needs --input-hosts N"),
 ], ids=["--input-hosts", "--input-port", "--input-cmd",
         "--ft-restart-input-hosts", "--compile-cache", "--compile-cache-dir",
         "--compile-cache-port", "--compile-cache-advertise", "--supervise",
         "--supervise-restarts", "--chaos-proxy", "--chaos-proxy-malformed",
-        "net_rst-without-a-proxy", "net_rst-with-a-proxy"])
+        "net_rst-without-a-proxy", "net_rst-with-a-proxy",
+        "--provision-policy", "--provision-policy-without-input-hosts",
+        "--provision-interval", "--provision-grow-threshold",
+        "--provision-shrink-threshold", "--provision-cooldown",
+        "--provision-goodput-dir", "--defer-input-plane"])
 def test_ported_launch_planes_are_accepted(flags, outcome, tmp_path, capsys):
     from tpucfn_torch.cli import main
 
@@ -276,6 +363,63 @@ def test_ported_launch_planes_are_accepted(flags, outcome, tmp_path, capsys):
     else:
         assert rc == 2 and outcome in err and not env_file.exists()
         assert "not ported" not in err
+
+
+SERVE = ["--input-cmd", "python -m tpucfn_torch.cli data serve"]
+
+
+# The provisioner's usage errors on a two-host cluster (the port's h100-2,
+# the JAX package's v4-16), where one input host leaves a trainer: the
+# same exit code and message, and nothing launched.
+@pytest.mark.parametrize("flags", [
+    ["--provision-policy", "goodput"],
+    ["--input-hosts", "1", *SERVE, "--provision-policy", "goodput"],
+    ["--ft", "--provision-policy", "goodput"],
+    ["--ft", "--defer-input-plane", "--provision-policy", "goodput"],
+    ["--defer-input-plane"],
+    ["--ft", "--defer-input-plane"],
+], ids=["policy", "policy-with-input-hosts", "policy-with-ft",
+        "policy-deferred", "deferred", "deferred-with-ft"])
+def test_provisioner_usage_errors_equal_the_references(flags, tmp_path,
+                                                       capsys):
+    from tpucfn.cli.main import main as jax_main
+    from tpucfn_torch.cli import main
+
+    marker = tmp_path / "ran"
+    out = []
+    for cli, accelerator in ((main, "h100-2"), (jax_main, "v4-16")):
+        state = str(tmp_path / accelerator)
+        assert cli(["--state-dir", state, "create-stack", "--name", "prov",
+                    "--accelerator", accelerator]) == 0
+        capsys.readouterr()
+        rc = cli(["--state-dir", state, "launch", "--name", "prov", *flags,
+                  "--", sys.executable, "-c",
+                  f"open({str(marker)!r}, 'w')"])
+        out.append((rc, capsys.readouterr().err))
+    assert out[0] == out[1] and out[0][0] == 2, out
+    assert not marker.exists()
+
+
+def test_resize_gives_the_references_line(tmp_path, capsys):
+    """``resize`` re-acquires the cluster at the new topology and
+    re-converges its contract: the JAX package's line and host count."""
+    from tpucfn.cli.main import main as jax_main
+    from tpucfn_torch.cli import main
+
+    lines = []
+    for cli, old, new in ((main, "h100-1", "h100-2"),
+                          (jax_main, "v4-8", "v4-16")):
+        state = str(tmp_path / old)
+        assert cli(["--state-dir", state, "create-stack", "--name", "rs",
+                    "--accelerator", old]) == 0
+        capsys.readouterr()
+        assert cli(["--state-dir", state, "resize", "--name", "rs",
+                    "--accelerator", new]) == 0
+        lines.append(capsys.readouterr().out.replace(new, "NEW"))
+        assert cli(["--state-dir", state, "env", "--name", "rs"]) == 0
+        assert "export TPUCFN_WORKERS_COUNT='2'" in capsys.readouterr().out
+    assert lines[0] == lines[1]
+    assert lines[0].startswith("RESIZE_COMPLETE rs -> NEW (2 hosts, gen=")
 
 
 def test_gcp_backend_is_refused(tmp_path, capsys):

@@ -2,8 +2,8 @@
 (``python -m tpucfn_torch.cli``): the speculative-decoding, router,
 admission and SLO flags, exit codes (0 only when every request was
 served), the compile-cache env on the CPU, and, in a subprocess, a SIGTERM drain
-with ``--obs-port``, ``--trace-dir`` and heartbeats under
-``TPUCFN_FT_DIR``, read back by ``obs``.
+with ``--obs-port``, ``--trace-dir`` (and ``POST /profile`` through ``obs
+profile``) and heartbeats under ``TPUCFN_FT_DIR``, read back by ``obs``.
 
 No tolerance is involved: the checks are counts (requests served,
 proposals accepted, exit codes, series present)."""
@@ -151,11 +151,12 @@ def _sample(text, name):
     return None
 
 
-def test_sigterm_drains_every_accepted_request(tmp_path):
+def test_sigterm_drains_every_accepted_request(tmp_path, capsys):
     """A subprocess serving 2 replicas (replica 0 speculative) gets SIGTERM
     mid-run: every accepted request is served within the grace and the
     exit code is 0.  While it runs, /metrics carries the router_* and
-    serve_spec_* series and the heartbeats advance; afterwards ``obs``
+    serve_spec_* series, ``obs profile`` gets a capture from ``POST
+    /profile`` and the heartbeats advance; afterwards ``obs``
     reads the request breakdown back from the trace, with the spec split."""
     run = tmp_path / "run"
     ft = tmp_path / "ft"
@@ -187,6 +188,14 @@ def test_sigterm_drains_every_accepted_request(tmp_path):
             text = _metrics(url)
         assert _sample(text, "serve_spec_k") == 4.0
         assert _sample(text, "serve_spec_acceptance_rate") is not None
+        # POST /profile with requests in flight, through ``obs profile``
+        host = url.split("//", 1)[1].split("/", 1)[0]
+        assert main(["obs", "profile", "--host", host, "--seconds",
+                     "0.5"]) == 0
+        capture = json.loads(capsys.readouterr().out)
+        assert capture["seconds"] == 0.5
+        json.loads((Path(capture["artifact"]) / "trace.json").read_text())
+        assert Path(capture["artifact"]).parent == run / "profile"
         beat0 = json.loads(heartbeat_path(ft, 0).read_text().splitlines()[-1])
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=300)

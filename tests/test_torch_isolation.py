@@ -42,7 +42,10 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("net/deadline.py", "net/deadline.py"),
             ("net/proxy.py", "net/proxy.py"),
             ("data/service.py", "data/service.py"),
-            ("compilecache/service.py", "compilecache/service.py")]
+            ("compilecache/service.py", "compilecache/service.py"),
+            ("obs/timeline.py", "obs/timeline.py"),
+            ("obs/postmortem.py", "obs/postmortem.py"),
+            ("net/autotune.py", "net/autotune.py")]
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)
@@ -95,6 +98,17 @@ COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
                ("obs/goodput.py", "obs/goodput.py", "read_goodput_dir"),
                ("obs/goodput.py", "obs/goodput.py",
                 "fleet_window_observation"),
+               ("obs/goodput.py", "obs/goodput.py", "cost_analysis_value"),
+               ("obs/goodput.py", "obs/goodput.py", "cost_analysis_flops"),
+               ("obs/goodput.py", "obs/goodput.py", "read_ft_events"),
+               ("obs/goodput.py", "obs/goodput.py", "host_goodput"),
+               ("obs/goodput.py", "obs/goodput.py", "_incidents_from_events"),
+               ("obs/goodput.py", "obs/goodput.py", "merge_goodput"),
+               ("obs/goodput.py", "obs/goodput.py", "goodput_report"),
+               ("obs/goodput.py", "obs/goodput.py", "append_goodput_ledger"),
+               ("obs/goodput.py", "obs/goodput.py", "read_goodput_ledger"),
+               ("obs/goodput.py", "obs/goodput.py", "diff_goodput_rows"),
+               ("obs/goodput.py", "obs/goodput.py", "render_goodput"),
                ("obs/flight.py", "obs/flight.py", "flight_path"),
                ("obs/flight.py", "obs/flight.py", "incident_flight_path"),
                ("obs/flight.py", "obs/flight.py", "hbm_watermark"),
@@ -113,6 +127,17 @@ COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
                ("cli.py", "cli/main.py", "cmd_compilecache_gc"),
                ("cli.py", "cli/main.py", "cmd_compilecache_stats"),
                ("cli.py", "cli/main.py", "cmd_chaos_proxy"),
+               ("cli.py", "cli/main.py", "cmd_resize"),
+               ("cli.py", "cli/main.py", "cmd_obs_goodput"),
+               ("cli.py", "cli/main.py", "cmd_obs_postmortem"),
+               ("cli.py", "cli/main.py", "cmd_obs_profile"),
+               ("cli.py", "cli/main.py", "cmd_obs_diff"),
+               ("cli.py", "cli/main.py", "_trace_merge"),
+               ("cli.py", "cli/main.py", "cmd_trace_export"),
+               ("cli.py", "cli/main.py", "cmd_trace_critpath"),
+               ("cli.py", "cli/main.py", "cmd_trace_advise"),
+               ("cli.py", "cli/main.py", "cmd_forensics_diff"),
+               ("cli.py", "cli/main.py", "cmd_ft_status"),
                ("data/pipeline.py", "data/pipeline.py", "_mp_worker_main"),
                ("data/pipeline.py", "data/pipeline.py", "MultiProcessLoader"),
                ("compilecache/store.py", "compilecache/store.py",
@@ -159,6 +184,11 @@ COPIED_CONSTANTS = [
     ("obs/goodput.py", "RECORDED_BUCKETS", "obs/goodput.py",
      "RECORDED_BUCKETS"),
     ("obs/goodput.py", "LEDGER_GLOB", "obs/goodput.py", "LEDGER_GLOB"),
+    ("obs/goodput.py", "DERIVED_BUCKETS", "obs/goodput.py", "DERIVED_BUCKETS"),
+    ("obs/goodput.py", "REPORT_BUCKETS", "obs/goodput.py", "REPORT_BUCKETS"),
+    ("obs/goodput.py", "LEDGER_KINDS", "obs/goodput.py", "LEDGER_KINDS"),
+    ("obs/goodput.py", "LEDGER_ROW_KINDS", "obs/goodput.py",
+     "LEDGER_ROW_KINDS"),
     ("obs/flight.py", "FLIGHT_GLOB", "obs/flight.py", "FLIGHT_GLOB"),
     ("obs/flight.py", "FLIGHT_FILE_KINDS", "obs/flight.py",
      "FLIGHT_FILE_KINDS"),

@@ -7,8 +7,10 @@ The cluster commands are the port of ``tpucfn/cli/main.py``'s::
     python -m tpucfn_torch.cli env --name demo       # eval-able contract
     python -m tpucfn_torch.cli launch --name demo --ft -- \
         python -m tpucfn_torch.examples.llama3_8b_fsdp --model 1b ...
+    python -m tpucfn_torch.cli resize --name demo --accelerator h100-2
     python -m tpucfn_torch.cli kill-host --name demo --host 0
     python -m tpucfn_torch.cli heal --name demo
+    python -m tpucfn_torch.cli ft status --name demo
     python -m tpucfn_torch.cli delete --name demo
 
 State lives in ``--state-dir`` (default ``$TPUCFN_TORCH_STATE_DIR`` or
@@ -22,9 +24,11 @@ with the reference's launch planes: ``--supervise`` (the coordinator
 under a re-exec loop that relaunches it to adopt the running fleet),
 ``--input-hosts``/``--input-cmd`` (input hosts running ``data serve``),
 ``--compile-cache`` (the kernel libraries' artifact server in the launch
-process) and ``--chaos-proxy`` (fault-injection proxies for the ``net_*``
-chaos events).  The provisioner policy loop's flags (``--provision-*``,
-``--defer-input-plane``) exit 2 naming Queue 1 B7.  ``data serve``,
+process), ``--chaos-proxy`` (fault-injection proxies for the ``net_*``
+chaos events) and ``--provision-policy goodput`` (the coordinator reads
+the ranks' goodput ledgers and grows or shrinks the input plane;
+``--defer-input-plane`` reserves the input hosts until a grow).
+``data serve``,
 ``compilecache serve|gc|stats`` and ``chaos proxy`` are the reference's
 standalone planes; none of them touches the card.
 
@@ -39,9 +43,16 @@ admission and SLO flags, a graceful drain on SIGTERM, the obs endpoint
 recorder and, under ``TPUCFN_FT_DIR``, heartbeats.  It runs on the card
 unless ``--device cpu`` is given; with ``TPUCFN_COMPILE_CACHE_ADDRS`` or
 ``TPUCFN_COMPILE_CACHE_DIR`` set, its kernel libraries go through the
-fleet cache.  ``obs`` reads a run
-directory's metrics and trace JSONL back as one fleet view
-(``tpucfn/cli/main.py:cmd_obs``).
+fleet cache; with ``--trace-dir`` its obs endpoint takes ``POST
+/profile``.
+
+The read side of a run directory, as the reference's: ``obs`` (metrics
+and trace JSONL as one fleet view), ``obs goodput`` (wall clock by
+bucket, with the ft incidents; ``--ledger`` appends a row that ``obs
+diff`` compares), ``obs postmortem`` (one incident's bundle), ``obs
+profile`` (the ``POST /profile`` client), ``trace export|critpath|advise``
+(the merged fleet timeline), ``forensics diff`` (two bundles) and ``ft
+status`` (heartbeat verdicts, recovery metrics and events).
 """
 
 from __future__ import annotations
@@ -59,28 +70,6 @@ from tpucfn_torch.launch import Launcher, LocalTransport, SSHTransport
 from tpucfn_torch.provision import FakeControlPlane, Provisioner
 from tpucfn_torch.serve.engine import LLAMA_PRESETS
 from tpucfn_torch.spec import ClusterSpec
-
-# (flag, argparse dest, what it asks for, ROADMAP item) for each launch
-# option of the JAX package whose plane the port does not have.
-REFUSED_LAUNCH_FLAGS = (
-    ("--provision-policy", "provision_policy",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--provision-interval", "provision_interval",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--provision-grow-threshold", "provision_grow_threshold",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--provision-shrink-threshold", "provision_shrink_threshold",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--provision-cooldown", "provision_cooldown",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--provision-goodput-dir", "provision_goodput_dir",
-     "the provisioner policy loop", "Queue 1 B7"),
-    ("--defer-input-plane", "defer_input_plane",
-     "the provisioner policy loop", "Queue 1 B7"),
-)
-# Flags of the list above that take no value.
-_REFUSED_SWITCHES = ("--defer-input-plane",)
-
 
 def _slo_objective(s: str) -> float:
     """argparse type for ``--slo-objective``: the fraction must leave a
@@ -200,18 +189,26 @@ def cmd_serve(args) -> int:
     if args.trace_dir:
         artifacts_root = Path(args.trace_dir).resolve().parent
         flight.install_dump_handlers(artifacts_root / "flight")
-    tracer = obs_srv = hb = server = router = None
+    tracer = obs_srv = hb = server = router = profiler = None
     reqs = []
     try:
         # Inside the try from the first resource on: a failed port bind
         # must not leak the tracer opened before it.
         tracer = Tracer(args.trace_dir, host_id=host_id, role="server",
                         truncate=True) if args.trace_dir else Tracer(None)
+        if args.trace_dir:
+            # POST /profile: the serve loop is the copied Server's, so the
+            # capture runs on the obs server's thread and holds the
+            # card's activity of every serving thread.
+            from tpucfn_torch.obs.profiler import ProfileCapture, capture_here
+
+            profiler = ProfileCapture(artifacts_root / "profile",
+                                      tracer=tracer, capture_fn=capture_here)
         # --obs-port wins; otherwise the launcher-assigned TPUCFN_OBS_PORT
         # applies; neither -> no endpoint.
         obs_srv = start_obs_server(registry, port=args.obs_port,
                                    role="server", host_id=host_id,
-                                   flight=flight)
+                                   flight=flight, profiler=profiler)
         if obs_srv is not None:
             print(f"obs endpoint: {obs_srv.url()}", file=sys.stderr)
         # Under `launch --ft` a serve host writes heartbeats like any
@@ -529,6 +526,472 @@ def cmd_obs(args) -> int:
     return 0
 
 
+def cmd_obs_goodput(args) -> int:
+    """The goodput ledger report (ISSUE 5 tentpole): wall-clock
+    decomposed into productive step / compile / data_wait / ckpt / idle
+    / lost_work / restart_downtime buckets that SUM to wall time, per
+    host and fleet-averaged, with incident attribution from the ft
+    plane's events.jsonl — the answer to "what fraction of paid
+    TPU-seconds trained the model, and who stole the rest"."""
+    import json as _json
+    import time as _time
+
+    from tpucfn_torch.obs.aggregate import JsonlTailer
+    from tpucfn_torch.obs.goodput import (LEDGER_GLOB, host_id_from_path,
+                                          merge_goodput, render_goodput)
+
+    # --run-dir only derives the defaults, so explicit --goodput-dir
+    # (relocated/copied ledgers) stands on its own.
+    if not args.run_dir and not args.goodput_dir:
+        print("error: --run-dir or --goodput-dir required",
+              file=sys.stderr)
+        return 2
+    run_dir = Path(args.run_dir).expanduser() if args.run_dir else None
+    goodput_dir = (Path(args.goodput_dir) if args.goodput_dir
+                   else run_dir / "goodput")
+    ft_events = (Path(args.ft_events) if args.ft_events
+                 else run_dir / "ft" / "events.jsonl" if run_dir
+                 else None)
+
+    # Same incremental-tail discipline as cmd_obs (ISSUE 5 satellite):
+    # --watch appends only NEW complete lines per tick instead of
+    # re-parsing O(run-length) ledger history; one-shot mode is simply
+    # the first poll.
+    tailer = JsonlTailer()
+    by_host: dict[int, list[dict]] = {}
+    ev_store: dict[str, list[dict]] = {}
+    # Idle-tick cache, same discipline as cmd_obs: a tick that tailed
+    # nothing new must not re-merge O(run-length) ledger history.
+    cache: dict = {"report": None}
+
+    def one_pass() -> dict:
+        dirty = cache["report"] is None
+        if goodput_dir.is_dir():
+            dirty |= tailer.poll_into(
+                sorted(goodput_dir.glob(LEDGER_GLOB)), by_host,
+                key_fn=host_id_from_path)
+        if ft_events is not None and ft_events.is_file():
+            dirty |= tailer.poll_into([ft_events], ev_store,
+                                      key_fn=lambda p: "ft")
+        if dirty:
+            cache["report"] = merge_goodput(
+                by_host, ev_store.get("ft", ()),
+                skipped_lines=tailer.skipped)
+        return cache["report"]
+
+    def show(report: dict) -> None:
+        if args.json:
+            print(_json.dumps(report))
+        elif report["num_hosts"] == 0:
+            print(f"no goodput ledgers under {goodput_dir} "
+                  "(runs write them via examples/common.py; see README "
+                  "Observability → Goodput)")
+            # ft incidents can exist without any ledger (older worker,
+            # misplaced goodput dir) — exactly the broken-run case the
+            # operator is diagnosing; don't hide them.
+            if report["incidents"]:
+                print(f"{len(report['incidents'])} ft incident(s) in "
+                      f"{ft_events} (downtime "
+                      f"{report['incident_downtime_s']:.2f}s) — "
+                      "run --json for detail")
+            if report["skipped_lines"]:
+                print(f"skipped {report['skipped_lines']} "
+                      "undecodable line(s)")
+        else:
+            print(render_goodput(report))
+
+    show(one_pass())
+    if getattr(args, "ledger", None):
+        # Cross-run regression ledger (ISSUE 6 satellite): one BENCH-
+        # row-style line per invocation; `tpucfn obs diff` compares the
+        # last two.  Refused under --watch — a watch starts while the
+        # run is LIVE, so the row would freeze the opening seconds'
+        # compile-dominated shares and poison every later diff; append
+        # from a one-shot invocation after the run.  An EMPTY report is
+        # never appended either: a mistyped --run-dir writing
+        # {wall_s: 0} would make the next diff compare a real run
+        # against nothing and mask a real regression.
+        if args.watch:
+            print("not appending to the goodput ledger under --watch "
+                  "(the run is still in progress — append with a "
+                  "one-shot `tpucfn obs goodput --ledger` after it "
+                  "ends)", file=sys.stderr)
+        elif cache["report"]["num_hosts"] == 0:
+            print("not appending to the goodput ledger: no ledgers "
+                  "found (wrong --run-dir?)", file=sys.stderr)
+        else:
+            from tpucfn_torch.obs.goodput import append_goodput_ledger
+
+            path = append_goodput_ledger(
+                args.ledger, cache["report"],
+                run_dir=str(run_dir if run_dir else goodput_dir))
+            print(f"appended goodput row to {path}", file=sys.stderr)
+    while args.watch:
+        _time.sleep(args.watch)
+        print()
+        show(one_pass())
+    return 0
+
+
+def cmd_obs_postmortem(args) -> int:
+    """Assemble one incident's forensic bundle (ISSUE 6 tentpole): the
+    enriched incident row, the skew-corrected timeline windowed around
+    detection, the window's goodput buckets, every host's flight-
+    recorder tail, and the last heartbeat per host — as a bundle
+    directory + rendered report."""
+    import json as _json
+
+    from tpucfn_torch.obs.postmortem import (build_postmortem,
+                                             render_postmortem, write_bundle)
+
+    if not args.run_dir:
+        print("error: --run-dir required", file=sys.stderr)
+        return 2
+    run_dir = Path(args.run_dir).expanduser()
+    try:
+        report = build_postmortem(
+            run_dir, incident_id=args.incident, window_s=args.window,
+            ft_dir=args.ft_dir)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    inc = report["incident"]["incident"]
+    out = (Path(args.out) if args.out
+           else run_dir / "postmortem" / f"incident-{inc:03d}")
+    bundle = write_bundle(report, out)
+    if args.json:
+        print(_json.dumps({**report, "bundle": str(bundle)}))
+    else:
+        print(render_postmortem(report))
+        print(f"\nbundle: {bundle}")
+    return 0
+
+
+def cmd_obs_profile(args) -> int:
+    """Client for the on-demand profiler capture (ISSUE 6): POST
+    /profile?seconds=S against a host's obs endpoint; prints the JSON
+    body naming the artifact directory (an XProf/TensorBoard trace on
+    that host)."""
+    import urllib.error
+    import urllib.request
+
+    host = args.host
+    if ":" not in host:
+        if not args.port:
+            print("error: --port required when --host has no :port",
+                  file=sys.stderr)
+            return 2
+        host = f"{host}:{args.port}"
+    url = f"http://{host}/profile?seconds={args.seconds:g}"
+    req = urllib.request.Request(url, data=b"", method="POST")
+    timeout = args.timeout or args.seconds + 120.0
+    try:
+        # The server blocks for the capture duration; pad the client
+        # timeout generously — profiler session setup alone can take
+        # tens of seconds on a busy host (a timed-out client does NOT
+        # cancel the server-side capture; it completes and the artifact
+        # still lands in the profile dir).
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read().decode()
+    except urllib.error.HTTPError as e:
+        detail = e.read().decode(errors="replace").strip()
+        print(f"error: {url} -> {e.code}: {detail}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError) as e:
+        print(f"error: {url} unreachable: {e}", file=sys.stderr)
+        return 1
+    print(body.strip())
+    return 0
+
+
+def cmd_obs_diff(args) -> int:
+    """Compare the last two rows of the cross-run goodput ledger
+    (ISSUE 6 satellite): goodput_ratio and per-bucket share deltas —
+    the regression check MFU alone cannot do."""
+    import json as _json
+
+    from tpucfn_torch.obs.aggregate import render_table
+    from tpucfn_torch.obs.goodput import diff_goodput_rows, read_goodput_ledger
+
+    rows, skipped = read_goodput_ledger(args.ledger)
+    if len(rows) < 2:
+        print(f"error: need at least 2 goodput_run rows in {args.ledger} "
+              f"(have {len(rows)}; append with `tpucfn obs goodput "
+              "--run-dir R --ledger`)", file=sys.stderr)
+        return 1
+    diff = diff_goodput_rows(rows[-2], rows[-1])
+    if args.json:
+        print(_json.dumps({**diff, "skipped_lines": skipped}))
+        return 0
+    print(f"# goodput diff  {args.ledger}  (last two of {len(rows)} rows)")
+    print(f"prev: {diff['prev']['run_dir']}  "
+          f"ratio={diff['prev']['goodput_ratio']}")
+    print(f"last: {diff['last']['run_dir']}  "
+          f"ratio={diff['last']['goodput_ratio']}")
+    d = diff["goodput_ratio_delta"]
+    print("goodput_ratio delta: "
+          + (f"{d:+.4f}" if d is not None else "n/a"))
+    print()
+    print(render_table(diff["buckets"],
+                       ["bucket", "prev_share", "last_share", "delta"]))
+    return 0
+
+
+def _trace_merge(args):
+    """Shared load for the trace subcommands: merge the run's per-host
+    span files onto the fleet clock, preferring the coordinator's
+    measured /clock probes when the run has them."""
+    from tpucfn_torch.obs.timeline import merge_timeline
+
+    run_dir = Path(args.run_dir).expanduser()
+    trace_dir = Path(args.trace_dir) if args.trace_dir \
+        else run_dir / "trace"
+    if not trace_dir.is_dir():
+        print(f"error: no trace dir at {trace_dir} (run with tracing "
+              "enabled, or pass --trace-dir)", file=sys.stderr)
+        return None, None
+    offsets = Path(args.offsets) if args.offsets \
+        else run_dir / "ft" / "clock-offsets.jsonl"
+    merged = merge_timeline(
+        trace_dir, offsets_path=offsets if offsets.is_file() else None)
+    if not merged["events"]:
+        print(f"error: no span events under {trace_dir}", file=sys.stderr)
+        return None, None
+    return merged, run_dir
+
+
+def cmd_trace_export(args) -> int:
+    """Merge a run's per-host span files into one clock-aligned
+    Chrome/Perfetto trace (ISSUE 20 tentpole): process lanes per
+    (host, role), flow arrows on every resolved cross-host link —
+    load the output in https://ui.perfetto.dev or chrome://tracing."""
+    import json as _json
+
+    from tpucfn_torch.obs.timeline import write_chrome_trace
+
+    merged, run_dir = _trace_merge(args)
+    if merged is None:
+        return 1
+    out = Path(args.out) if args.out else run_dir / "trace" / "timeline.json"
+    write_chrome_trace(merged, out)
+    stats = merged["link_stats"]
+    summary = {
+        "out": str(out), "events": len(merged["events"]),
+        "links_resolved": stats["resolved"],
+        "link_carriers": stats["carriers"],
+        "by_name": stats["by_name"],
+        "hosts_probed": sorted(merged["offsets"]),
+    }
+    if args.json:
+        print(_json.dumps(summary))
+    else:
+        print(f"wrote {out}: {summary['events']} events, "
+              f"{stats['resolved']}/{stats['carriers']} cross-host links "
+              f"resolved ({len(merged['offsets'])} host(s) on measured "
+              "clock offsets)")
+    return 0
+
+
+def cmd_trace_critpath(args) -> int:
+    """Per-step critical-path attribution (ISSUE 20 tentpole): walk
+    each trainer step's merged span tree, attribute wall time to planes
+    (compute / remote-serve / input-local / artifact-fetch / ckpt /
+    coordinator), print per-step "bounded by" verdicts — and cross-check
+    the aggregate shares against the goodput ledger when the run has
+    one."""
+    import json as _json
+
+    from tpucfn_torch.obs.timeline import (critical_path, crosscheck_goodput,
+                                           render_critpath)
+
+    merged, run_dir = _trace_merge(args)
+    if merged is None:
+        return 1
+    cp = critical_path(merged)
+    if not cp["steps"]:
+        print("error: no trainer step spans in the merged timeline — "
+              "nothing to attribute", file=sys.stderr)
+        return 1
+    crosscheck = None
+    gp_dir = Path(args.goodput) if args.goodput else run_dir / "goodput"
+    if gp_dir.is_dir():
+        from tpucfn_torch.obs.goodput import goodput_report
+
+        ev = run_dir / "ft" / "events.jsonl"
+        report = goodput_report(gp_dir, ev if ev.is_file() else None)
+        if report.get("num_hosts"):
+            crosscheck = crosscheck_goodput(cp, report)
+    if args.json:
+        print(_json.dumps({**cp, "crosscheck": crosscheck}))
+    else:
+        print(render_critpath(cp, crosscheck), end="")
+    return 0
+
+
+def cmd_trace_advise(args) -> int:
+    """Per-plane deadline autotune ADVISORY (ISSUE 20 satellite):
+    observed frame-time percentiles from the merged span timeline →
+    suggested deadline values, report-only — the operator changes the
+    flag, nothing auto-applies."""
+    import json as _json
+
+    from tpucfn_torch.net.autotune import render_advice, suggest_deadlines
+
+    merged, _run_dir = _trace_merge(args)
+    if merged is None:
+        return 1
+    rows = suggest_deadlines(merged["events"], headroom=args.headroom,
+                             min_samples=args.min_samples)
+    if args.json:
+        print(_json.dumps(rows))
+    else:
+        print(render_advice(rows), end="")
+    return 0
+
+
+def cmd_forensics_diff(args) -> int:
+    """Diff two postmortem bundles of the same incident class
+    (ISSUE 20 satellite): same-window goodput bucket shares, per-host
+    heartbeat-age and span-count deltas — what did the second incident
+    do differently?"""
+    import json as _json
+
+    from tpucfn_torch.obs.postmortem import diff_bundles, render_bundle_diff
+
+    for d in (args.bundle_a, args.bundle_b):
+        if not (Path(d) / "incident.json").is_file():
+            print(f"error: {d} is not a postmortem bundle (no "
+                  "incident.json — make one with `tpucfn obs "
+                  "postmortem`)", file=sys.stderr)
+            return 2
+    diff = diff_bundles(args.bundle_a, args.bundle_b)
+    if args.json:
+        print(_json.dumps(diff))
+    else:
+        print(render_bundle_diff(diff))
+    return 0
+
+
+def cmd_ft_status(args) -> int:
+    """Render the fault-tolerance plane's fleet view: per-host heartbeat
+    verdicts (LIVE/STRAGGLER/SUSPECT/DEAD), the supervisor's ft_*
+    metrics (restarts, failures detected, MTTR), and the recent
+    detect→decide→act→recovered event tail — the read side of
+    ``tpucfn launch --ft`` (ISSUE 4)."""
+    import json as _json
+
+    from tpucfn_torch.ft import HeartbeatMonitor, MonitorConfig
+    from tpucfn_torch.obs.aggregate import render_table
+
+    if not args.dir and not args.name:
+        print("error: ft status needs --name (cluster) or --dir "
+              "(heartbeat dir)", file=sys.stderr)
+        return 2
+    ft_dir = Path(args.dir) if args.dir else _run_dir(args, args.name) / "ft"
+    if not ft_dir.is_dir():
+        print(f"error: no ft dir at {ft_dir} (launch with --ft first, "
+              "or pass --dir)", file=sys.stderr)
+        return 1
+
+    sup: dict = {}
+    sup_path = ft_dir / "supervisor.json"
+    if sup_path.is_file():
+        try:
+            sup = _json.loads(sup_path.read_text())
+        except (OSError, _json.JSONDecodeError):
+            sup = {}
+    interval = args.heartbeat_interval
+    if interval is None:
+        interval = sup.get("heartbeat_interval_s") or 1.0
+    monitor = HeartbeatMonitor(
+        ft_dir, expected_hosts=sup.get("gang_hosts"),
+        config=MonitorConfig(interval_s=float(interval)))
+    view = monitor.observe()
+    healthy, health_detail = view.healthy()
+
+    events: list[dict] = []
+    ev_path = ft_dir / "events.jsonl"
+    if ev_path.is_file():
+        for line in ev_path.read_text().splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                events.append(_json.loads(line))
+            except _json.JSONDecodeError:
+                continue  # torn tail while the supervisor appends
+
+    rows = [{"host": v.host_id, "state": v.state.value,
+             "age_s": v.age_s, "step": v.step, "pid": v.pid,
+             "reason": v.reason} for v in view.hosts]
+    report = {
+        "ft_dir": str(ft_dir),
+        "healthy": healthy,
+        "fleet": health_detail["fleet"],
+        "max_step": health_detail["max_step"],
+        "hosts": rows,
+        "policy": sup.get("policy"),
+        "budget": sup.get("budget"),
+        "metrics": sup.get("metrics", {}),
+        "events": events[-args.events:] if args.events else events,
+    }
+    if args.json:
+        print(_json.dumps(report))
+        return 0
+    print(f"# ft fleet view  {ft_dir}  "
+          f"{'HEALTHY' if healthy else 'UNHEALTHY'}")
+    if rows:
+        print(render_table(rows, ["host", "state", "age_s", "step", "pid",
+                                  "reason"], float_fmt="{:.2f}"))
+    else:
+        print("no heartbeats yet")
+    m = report["metrics"]
+    if m:
+        mttr = m.get("ft_mttr_seconds") or {}
+        print(f"\nrestarts={m.get('ft_restarts_total', 0)} "
+              f"(gang={m.get('ft_gang_restarts_total', 0)} "
+              f"solo={m.get('ft_solo_restarts_total', 0)}) "
+              f"failures_detected={m.get('ft_failures_detected_total', 0)} "
+              f"mttr_p50={(mttr.get('p50') if isinstance(mttr, dict) else None)}")
+        # The graceful-degradation surface (ISSUE 7): only when any of
+        # the four paths actually fired — a quiet fleet stays terse.
+        degrade = {"planned_drains": m.get("ft_preempt_drains_total", 0),
+                   "shrinks": m.get("ft_shrinks_total", 0),
+                   "ckpt_retries": m.get("ft_ckpt_retries_total", 0),
+                   "evictions": m.get("ft_straggler_evictions_total", 0)}
+        if any(degrade.values()):
+            pm = m.get("ft_planned_mttr_seconds") or {}
+            planned_p50 = (pm.get("p50")
+                           if isinstance(pm, dict) else None)
+            print("degradation: "
+                  + " ".join(f"{k}={v}" for k, v in degrade.items())
+                  + (f" planned_mttr_p50={planned_p50}"
+                     if degrade["planned_drains"] else ""))
+        if report["budget"]:
+            b = report["budget"]
+            print(f"policy={report['policy']} budget "
+                  f"{b.get('used', 0)}/{b.get('max_restarts', 0)} used")
+    if report["events"]:
+        print("\n== recent events ==")
+        for e in report["events"]:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "kind")}
+            # Lead with the story, not the raw dict, for the new kinds:
+            # a drained preemption / shrink / ckpt retry must be
+            # recognizable at a glance, not read as a generic restart.
+            kind = e.get("kind", "?")
+            tag = ""
+            if kind == "recovered" and e.get("planned"):
+                tag = " [planned]"
+            elif kind == "shrink":
+                tag = (f" [{e.get('from_hosts')}->{e.get('to_hosts')} "
+                       f"gen {e.get('generation')}]")
+            elif kind == "ckpt_retry":
+                tag = (f" [bad step {e.get('bad_step')} -> retry from "
+                       f"{e.get('retry_from')}]")
+            print(f"  {e.get('ts', 0):.3f} {kind:12s}{tag} {extra}")
+    return 0
+
+
 def _refuse(what: str) -> int:
     print(f"error: {what}", file=sys.stderr)
     return 2
@@ -583,6 +1046,17 @@ def cmd_delete(args) -> int:
     return 0
 
 
+def cmd_resize(args) -> int:
+    prov = Provisioner(_control_plane(args))
+    rec = prov.resize(args.name, args.accelerator)
+    converge(rec, _run_dir(args, args.name))
+    print(f"RESIZE_COMPLETE {args.name} -> {args.accelerator} "
+          f"({len(rec.hosts)} hosts, gen={rec.generation})")
+    print("  running jobs must be re-launched; they resume from their "
+          "latest checkpoint")
+    return 0
+
+
 def cmd_env(args) -> int:
     rec = _control_plane(args).describe(args.name)
     contract = converge(rec, _run_dir(args, args.name))
@@ -608,24 +1082,14 @@ def cmd_heal(args) -> int:
     return 0
 
 
-def _refused_launch_flag(args) -> str | None:
-    for flag, dest, plane, item in REFUSED_LAUNCH_FLAGS:
-        if getattr(args, dest, None) not in (None, False):
-            return (f"{flag}: {plane} is not ported to tpucfn_torch yet "
-                    f"(ROADMAP {item})")
-    return None
-
-
 def cmd_launch(args) -> int:
     """``tpucfn launch`` (``tpucfn/cli/main.py:cmd_launch``): the command
     fanned out over the cluster's hosts, with its planes: the gang
     coordinator (``--ft``), self-supervision (``--supervise``), input
     hosts (``--input-hosts``), the kernel-library cache's artifact
-    server (``--compile-cache``) and chaos proxies (``--chaos-proxy``).
-    The provisioner policy loop's flags exit 2 before anything runs."""
-    refused = _refused_launch_flag(args)
-    if refused:
-        return _refuse(refused)
+    server (``--compile-cache``), chaos proxies (``--chaos-proxy``) and
+    the goodput-driven provisioner policy loop (``--provision-policy``),
+    which grows or shrinks the input plane through the coordinator."""
     rec = _control_plane(args).describe(args.name)
     from tpucfn_torch.provision.control_plane import ClusterState
 
@@ -670,6 +1134,20 @@ def cmd_launch(args) -> int:
         import shlex
 
         input_argv = shlex.split(args.input_cmd)
+    # The provisioner policy observes the goodput ledgers and actuates
+    # through the coordinator, on the input plane: both must exist.
+    if args.provision_policy and not args.ft:
+        return _refuse("--provision-policy needs --ft (the controller "
+                       "actuates through the gang coordinator's "
+                       "planned-restart machinery)")
+    if args.provision_policy and not args.input_hosts:
+        return _refuse("--provision-policy needs --input-hosts N (growing "
+                       "the input plane is the one actuator it owns; with "
+                       "no input hosts there is nothing to provision)")
+    if args.defer_input_plane and not args.input_hosts:
+        return _refuse("--defer-input-plane needs --input-hosts N (it "
+                       "reserves those hosts for the provisioner instead "
+                       "of spawning them at launch)")
     # All usage validation before any server binds: an early return
     # below must not leak a bound artifact-server port.
     argv = list(args.cmd)
@@ -784,7 +1262,8 @@ def cmd_launch(args) -> int:
                         input_advertise_host=("127.0.0.1"
                                               if args.transport != "ssh"
                                               else None),
-                        compile_cache_addrs=cc_addrs)
+                        compile_cache_addrs=cc_addrs,
+                        defer_input_plane=args.defer_input_plane)
     from tpucfn_torch.launch import run_with_restarts
 
     obs_srv = None
@@ -869,6 +1348,27 @@ def cmd_launch(args) -> int:
                     _reacquire_cache["t"] = now
                 return addr in _reacquire_cache["healthy"]
 
+            provision_policy = None
+            goodput_dir = None
+            if args.provision_policy:
+                from tpucfn_torch.provision import (PolicyConfig,
+                                                    provision_policy_from_name)
+
+                # The dir the ranks' GoodputLedger writes into when the
+                # job's --run-dir is the cluster's run dir
+                # (examples/common.py: <run dir>/goodput): the policy
+                # reads what the fleet reports.
+                goodput_dir = (Path(args.provision_goodput_dir)
+                               if args.provision_goodput_dir
+                               else _run_dir(args, args.name) / "goodput")
+                provision_policy = provision_policy_from_name(
+                    args.provision_policy,
+                    PolicyConfig(
+                        grow_threshold=args.provision_grow_threshold,
+                        shrink_threshold=args.provision_shrink_threshold,
+                        cooldown_s=args.provision_cooldown,
+                        max_input_hosts=args.input_hosts))
+
             coordinator = GangCoordinator(
                 launcher, argv,
                 policy=policy_from_name(args.ft_policy, budget),
@@ -886,7 +1386,10 @@ def cmd_launch(args) -> int:
                 adopt=(True if args.adopt
                        else False if args.no_adopt else "auto"),
                 chaos=chaos_spec,
-                net_proxies=net_proxies)
+                net_proxies=net_proxies,
+                provision_policy=provision_policy,
+                goodput_dir=goodput_dir,
+                provision_interval_s=args.provision_interval)
             coord_ref["coord"] = coordinator
             rc = coordinator.run()
         else:
@@ -1350,13 +1853,38 @@ def _add_launch_parser(sub) -> None:
     l.add_argument("--supervise-restarts", type=int, default=3, metavar="N",
                    help="coordinator relaunches allowed before the "
                         "supervise loop gives up and propagates the rc")
-    for flag, dest, plane, item in REFUSED_LAUNCH_FLAGS:
-        refused = f"refused: {plane} is not ported (ROADMAP {item})"
-        if flag in _REFUSED_SWITCHES:
-            l.add_argument(flag, dest=dest, action="store_true",
-                           default=None, help=refused)
-        else:
-            l.add_argument(flag, dest=dest, metavar="X", help=refused)
+    l.add_argument("--provision-policy", choices=["goodput"],
+                   help="goodput-driven provisioner loop (needs --ft and "
+                        "--input-hosts): the coordinator reads the fleet "
+                        "goodput ledgers each interval and actuates: a "
+                        "data_wait share over threshold grows the input "
+                        "plane (planned drain-relaunch), chronic "
+                        "starvation at ceiling is flagged, a starvation-"
+                        "free fleet shrinks it back")
+    l.add_argument("--provision-interval", type=float, default=5.0,
+                   metavar="SECONDS",
+                   help="how often the provisioner policy observes the "
+                        "goodput ledgers")
+    l.add_argument("--provision-grow-threshold", type=float, default=0.25,
+                   metavar="SHARE",
+                   help="data_wait share of wall above which the policy "
+                        "grows the input plane")
+    l.add_argument("--provision-shrink-threshold", type=float, default=0.02,
+                   metavar="SHARE",
+                   help="data_wait share below which a served fleet "
+                        "releases its input hosts")
+    l.add_argument("--provision-cooldown", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="minimum time between provisioner actuations")
+    l.add_argument("--provision-goodput-dir", metavar="DIR",
+                   help="where the fleet's goodput ledgers land (must "
+                        "match the trainers' run dir goodput/; default: "
+                        "the cluster state dir goodput/)")
+    l.add_argument("--defer-input-plane", action="store_true",
+                   help="reserve the --input-hosts slots instead of "
+                        "spawning them at launch: trainers start on "
+                        "local loading and the provisioner activates the "
+                        "input plane when goodput says it pays")
     l.add_argument("cmd", nargs=argparse.REMAINDER)
     l.set_defaults(fn=cmd_launch)
 
@@ -1379,11 +1907,36 @@ def _add_cluster_parsers(sub) -> None:
     d.add_argument("--name", required=True)
     d.set_defaults(fn=cmd_delete)
 
+    r = sub.add_parser("resize", help="re-acquire at a new topology")
+    r.add_argument("--name", required=True)
+    r.add_argument("--accelerator", required=True)
+    r.set_defaults(fn=cmd_resize)
+
     e = sub.add_parser("env", help="print the cluster env contract (eval-able)")
     e.add_argument("--name", required=True)
     e.set_defaults(fn=cmd_env)
 
     _add_launch_parser(sub)
+
+    ft = sub.add_parser(
+        "ft", help="fault-tolerance plane (heartbeats, recovery, chaos)")
+    ftsub = ft.add_subparsers(dest="ft_command", required=True)
+    fs = ftsub.add_parser(
+        "status",
+        help="render the fleet's heartbeat verdicts, recovery metrics "
+             "(restarts, MTTR), and recent incident events")
+    fs.add_argument("--name", help="cluster name (heartbeats under its "
+                                   "state dir ft/)")
+    fs.add_argument("--dir", help="explicit heartbeat dir (overrides --name)")
+    fs.add_argument("--heartbeat-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="classification interval override (default: the "
+                         "supervisor snapshot's value, else 1.0)")
+    fs.add_argument("--events", type=int, default=10,
+                    help="incident-event tail length (0 = all)")
+    fs.add_argument("--json", action="store_true",
+                    help="emit the full fleet report as one JSON object")
+    fs.set_defaults(fn=cmd_ft_status)
 
     da = sub.add_parser(
         "data", help="input-plane commands (disaggregated batch service)")
@@ -1627,7 +2180,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--trace-dir", metavar="DIR",
                     help="write request-lifecycle trace spans (queue_wait/"
                          "prefill/decode_round/spec_*/request_done JSONL) "
-                         "to DIR; flight dumps go to its sibling flight/")
+                         "to DIR; flight dumps go to its sibling flight/ "
+                         "and POST /profile captures to profile/")
     sv.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "attention path)")
@@ -1650,6 +2204,162 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-render every N seconds, tailing files "
                          "incrementally from their last offset")
     ob.set_defaults(fn=cmd_obs)
+    obsub = ob.add_subparsers(dest="obs_command")
+    og = obsub.add_parser(
+        "goodput",
+        help="per-run wall-clock ledger: productive/compile/data_wait/"
+             "ckpt/idle/lost_work/restart_downtime buckets that sum to "
+             "wall time, plus ft incident attribution")
+    # SUPPRESS defaults on the flags the parent `obs` parser also owns:
+    # argparse applies subparser defaults AFTER the parent's values are
+    # parsed, so a plain default here would silently clobber
+    # `python -m tpucfn_torch.cli obs --json --run-dir X goodput` back
+    # to json=False.
+    og.add_argument("--run-dir", default=argparse.SUPPRESS,
+                    help="the training --run-dir (expects goodput/ and "
+                         "optionally ft/events.jsonl beneath)")
+    og.add_argument("--goodput-dir",
+                    help="explicit ledger dir (default RUN/goodput)")
+    og.add_argument("--ft-events",
+                    help="ft incident log (default RUN/ft/events.jsonl)")
+    og.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
+                    help="emit the full report as one JSON object")
+    og.add_argument("--watch", type=float, default=argparse.SUPPRESS,
+                    metavar="SECONDS",
+                    help="re-read and re-render every N seconds")
+    og.add_argument("--ledger", nargs="?", metavar="PATH",
+                    const="runs/goodput_ledger.jsonl", default=None,
+                    help="also append this run's report as one JSON row "
+                         "to the cross-run regression ledger (default "
+                         "runs/goodput_ledger.jsonl); diff with "
+                         "`python -m tpucfn_torch.cli obs diff`")
+    og.set_defaults(fn=cmd_obs_goodput)
+
+    pm = obsub.add_parser(
+        "postmortem",
+        help="assemble one incident's forensic bundle: incident row, "
+             "skew-corrected timeline window, goodput span, per-host "
+             "flight-recorder tails, last heartbeats")
+    pm.add_argument("--run-dir", default=argparse.SUPPRESS,
+                    help="the training --run-dir (expects ft/, trace/, "
+                         "goodput/, flight/ beneath)")
+    pm.add_argument("--ft-dir", default=None,
+                    help="explicit ft dir (default RUN/ft)")
+    which = pm.add_mutually_exclusive_group()
+    which.add_argument("--incident", type=int, default=None,
+                       help="incident number (from events.jsonl / "
+                            "`python -m tpucfn_torch.cli ft status`)")
+    which.add_argument("--latest", action="store_true",
+                       help="the newest incident (the default)")
+    pm.add_argument("--window", type=float, default=15.0, metavar="SECONDS",
+                    help="timeline/goodput window padding around "
+                         "detection..recovery")
+    pm.add_argument("--out", metavar="DIR",
+                    help="bundle directory (default "
+                         "RUN/postmortem/incident-NNN)")
+    pm.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
+                    help="emit the full report (+ bundle path) as JSON")
+    pm.set_defaults(fn=cmd_obs_postmortem)
+
+    pf = obsub.add_parser(
+        "profile",
+        help="trigger an on-demand torch.profiler capture on a host "
+             "via its obs endpoint (POST /profile)")
+    pf.add_argument("--host", required=True, metavar="HOST[:PORT]",
+                    help="obs endpoint address (the launch banner prints "
+                         "each host's port)")
+    pf.add_argument("--port", type=int, default=0,
+                    help="port when --host has none")
+    pf.add_argument("--seconds", type=float, default=2.0,
+                    help="capture duration")
+    pf.add_argument("--timeout", type=float, default=0.0,
+                    help="client timeout (default: seconds + 120 — "
+                         "profiler session setup can take tens of "
+                         "seconds on a busy host)")
+    pf.set_defaults(fn=cmd_obs_profile)
+
+    df = obsub.add_parser(
+        "diff",
+        help="compare goodput_ratio + bucket shares between the last "
+             "two rows of the cross-run goodput ledger")
+    df.add_argument("--ledger", default="runs/goodput_ledger.jsonl",
+                    help="ledger path (written by `python -m "
+                         "tpucfn_torch.cli obs goodput --ledger`)")
+    df.add_argument("--json", action="store_true", default=argparse.SUPPRESS,
+                    help="emit the diff as one JSON object")
+    df.set_defaults(fn=cmd_obs_diff)
+
+    tr = sub.add_parser(
+        "trace",
+        help="fleet timeline plane: clock-aligned Perfetto export, "
+             "per-step critical-path attribution, deadline advice")
+    trsub = tr.add_subparsers(dest="trace_command", required=True)
+
+    def _trace_common(tp):
+        tp.add_argument("--run-dir", required=True, metavar="DIR",
+                        help="the training run directory (traces under "
+                             "DIR/trace, clock probes under "
+                             "DIR/ft/clock-offsets.jsonl)")
+        tp.add_argument("--trace-dir", default=None, metavar="DIR",
+                        help="span-file directory (default: "
+                             "<run-dir>/trace)")
+        tp.add_argument("--offsets", default=None, metavar="FILE",
+                        help="coordinator clock-offsets.jsonl (default: "
+                             "<run-dir>/ft/clock-offsets.jsonl when "
+                             "present; absent = step-anchored estimate "
+                             "only)")
+        tp.add_argument("--json", action="store_true",
+                        help="emit machine-readable JSON")
+
+    te = trsub.add_parser(
+        "export",
+        help="merge per-host span files into one Chrome/Perfetto "
+             "trace-event JSON with cross-host flow arrows")
+    _trace_common(te)
+    te.add_argument("--out", default=None, metavar="FILE",
+                    help="output path (default: "
+                         "<run-dir>/trace/timeline.json)")
+    te.set_defaults(fn=cmd_trace_export)
+    tc = trsub.add_parser(
+        "critpath",
+        help="per-step critical-path attribution: which plane bounded "
+             "each step, with a goodput-ledger cross-check")
+    _trace_common(tc)
+    tc.add_argument("--goodput", default=None, metavar="DIR",
+                    help="goodput ledger dir for the aggregate "
+                         "cross-check (default: <run-dir>/goodput when "
+                         "present)")
+    tc.set_defaults(fn=cmd_trace_critpath)
+    ta = trsub.add_parser(
+        "advise",
+        help="deadline autotune ADVISORY from observed frame-time "
+             "percentiles (report-only)")
+    _trace_common(ta)
+    ta.add_argument("--headroom", type=float, default=8.0,
+                    help="suggested = clamp(p99 * headroom, 1s, "
+                         "current default)")
+    ta.add_argument("--min-samples", type=int, default=8,
+                    help="suggest nothing below this many observed "
+                         "frames")
+    ta.set_defaults(fn=cmd_trace_advise)
+
+    fo = sub.add_parser(
+        "forensics",
+        help="postmortem bundle tooling (diff two incidents)")
+    fosub = fo.add_subparsers(dest="forensics_command", required=True)
+    fd = fosub.add_parser(
+        "diff",
+        help="diff two postmortem bundles of the same incident class: "
+             "goodput-share and per-host deltas over each bundle's "
+             "window")
+    fd.add_argument("bundle_a", metavar="BUNDLE_A",
+                    help="earlier bundle dir (from `python -m "
+                         "tpucfn_torch.cli obs postmortem`)")
+    fd.add_argument("bundle_b", metavar="BUNDLE_B",
+                    help="later bundle dir")
+    fd.add_argument("--json", action="store_true",
+                    help="emit the diff as one JSON object")
+    fd.set_defaults(fn=cmd_forensics_diff)
     return ap
 
 

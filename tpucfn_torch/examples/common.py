@@ -5,8 +5,9 @@
 the checkpoints (rank 0, then a barrier that carries its outcome),
 ``init_or_resume`` restores the latest step or starts fresh (a step that
 will not restore exits with ``RESTORE_FAILED_RC``), then ``data_wait ->
-step -> ckpt`` per step through :class:`TrainerObs` (trace spans and
-registry metrics) with interval saves, ``--stop-after``, ``--eval-every``,
+step -> ckpt`` per step through :class:`TrainerObs` (trace spans,
+registry metrics and the goodput ledger under ``run_dir/goodput``) with
+interval saves, ``--stop-after``, ``--eval-every``,
 ``time_to_first_step`` and the MFU gauge after step 1, the final
 force-save, and the final ``items/sec`` line.  Batches come from the
 dataset through :func:`tpucfn_torch.data.prefetch_to_device`.
@@ -243,6 +244,7 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
     ``eval_step`` and logs ``eval_*`` metrics.  Returns the final state."""
     from tpucfn_torch.launch import process_index
     from tpucfn_torch.obs.flight import FlightRecorder
+    from tpucfn_torch.obs.goodput import GoodputLedger
     from tpucfn_torch.obs.metrics import (MetricLogger, StepTimer,
                                           register_device_gauges,
                                           register_kernel_gauges)
@@ -276,11 +278,18 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
         if n:
             logger.log(step, {f"eval_{k}": v / n for k, v in sums.items()})
 
-    logger = tracer = obs_srv = hb = kcache = None
+    logger = tracer = obs_srv = hb = kcache = ledger = None
     try:
         logger = MetricLogger(run_dir / "logs", stdout_every=args.log_every)
         registry = set_default_labels(host=str(host), role="trainer")
         tracer = Tracer(run_dir / "trace", host_id=host, role="trainer")
+        # The goodput ledger: every loop phase is attributed to a
+        # wall-clock bucket in a per-host JSONL; a relaunch appends a new
+        # window to the same file, which is how `obs goodput` sees
+        # restart downtime and re-run steps, and what the provisioner
+        # policy reads.
+        ledger = GoodputLedger(run_dir / "goodput", host_id=host,
+                               role="trainer")
         # The forensics plane: a bounded in-memory flight ring of
         # per-phase and card-memory samples, dumped to run_dir/flight on
         # SIGTERM/atexit and served live on /flightrecorder (where the
@@ -304,7 +313,7 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
 
             kcache = configure_from_env(tracer=tracer, registry=registry,
                                         probe=compile_probe)
-        obs = TrainerObs(registry, tracer, flight=flight,
+        obs = TrainerObs(registry, tracer, ledger=ledger, flight=flight,
                          compile_probe=compile_probe)
         obs_srv = start_obs_server(
             registry, role="trainer", host_id=host,
@@ -338,6 +347,8 @@ def run_train_loop(trainer, ds, mesh, args, *, items_per_step, extra_axes=(),
             logger.close()
         if tracer is not None:
             tracer.close()
+        if ledger is not None:
+            ledger.close()
         if obs_srv is not None:
             obs_srv.close()
 

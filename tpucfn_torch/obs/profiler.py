@@ -2,12 +2,14 @@
 ``torch.profiler``.
 
 :class:`ProfileCapture` is the on-demand capture behind the obs server's
-``POST /profile``; :func:`profile_steps` traces a training loop for
-``--profile``.  Both trace the CPU ops and, on a card, CUPTI's CUDA
-activity (every kernel, the flash kernels by name) and write a Chrome
-trace (``chrome://tracing``, Perfetto) named ``trace.json`` in a
-capture's numbered directory, or ``trace-<pid>.json`` for
-``--profile``.  :class:`ProfilerBusy` and :meth:`ProfileCapture.__call__`
+``POST /profile`` (run by the training loop between steps, or, with
+:func:`capture_here`, on the server's thread for the serve CLI);
+:func:`profile_steps` traces a training loop for ``--profile``.  Each
+traces the CPU ops of the thread that starts it and, on a card, CUPTI's
+CUDA activity of every thread (every kernel, the flash kernels by name),
+and writes a Chrome trace (``chrome://tracing``, Perfetto) named
+``trace.json`` in a capture's numbered directory, or ``trace-<pid>.json``
+for ``--profile``.  :class:`ProfilerBusy` and :meth:`ProfileCapture.__call__`
 are copies held equal to the JAX package's by
 ``tests/test_torch_isolation.py``.
 
@@ -49,6 +51,21 @@ def _start_profiler():
     prof = profile(activities=activities)
     prof.start()
     return prof
+
+
+def capture_here(d: Path, seconds: float) -> None:
+    """Trace ``seconds`` on the calling thread into ``d/trace.json``: the
+    process's CUDA activity (CUPTI records the kernels every thread
+    launches) and this thread's CPU ops.  The ``capture_fn`` of a
+    :class:`ProfileCapture` in a process with no step loop to hand its
+    captures to: the serve CLI, whose decode steps run in the serving
+    threads of the copied ``Server``."""
+    prof = _start_profiler()
+    try:
+        time.sleep(seconds)
+    finally:
+        prof.stop()
+    prof.export_chrome_trace(str(d / "trace.json"))
 
 
 class ProfilerBusy(RuntimeError):
@@ -98,8 +115,9 @@ class ProfileCapture:
     a profiler it had started is stopped at its next boundary.
 
     One capture at a time: a second concurrent request raises
-    :class:`ProfilerBusy` (HTTP 409).  ``capture_fn`` is injectable
-    (tests swap the real profiler for a recorder).
+    :class:`ProfilerBusy` (HTTP 409).  ``capture_fn(dir, seconds)``
+    replaces the handoff: :func:`capture_here` in a process with no step
+    loop (the serve CLI), a recorder in tests.
     """
 
     MAX_SECONDS = 600.0
