@@ -15,7 +15,10 @@ Phases, each printed as one JSON line:
    ``flash_fwd_mma_sm90.cu``, ``flash_bwd.cu``, ``flash_bwd_dq_sm90.cu``,
    ``flash_bwd_dq_mma_sm90.cu``, ``flash_bwd_dkv_sm90.cu`` and
    ``flash_bwd_dkv_mma_sm90.cu``) with ``nvcc`` for ``sm_90a``, one
-   process per source, all started together.
+   process per source, all started together.  Printed: each ``sm90`` and
+   ``mma`` kernel's registers a thread and spill bytes at head dims 80
+   and 160, from ``ptxas -v``; K1, K2 and K3 ``sm90`` at 160 must spill
+   nothing (a wgmma accumulator that spills is serialized).
 3. ``kernel``: the flash forward kernel (K1) against its plain PyTorch
    version on the same inputs, at the serving path's shapes (llama3-1b
    decode and prefill), the training path's (2 x 2048, causal), the
@@ -214,15 +217,17 @@ Phases, each printed as one JSON line:
    (``tpucfn_torch/examples/sd15_unet.py``) through its ``main(argv)``:
    ``UNetConfig.sd15()`` at 64x64x4 latents, a 77 x 768 context, batch
    2, fp32 params, EMA 0.9999, 6 steps on one repeated batch.  Gates:
-   finite losses; every step exactly 10 K1, 10 K2, 10 K3 and 10 Delta
-   launches, all on ``sm90`` and all at head dim 40 (the five transformer
-   blocks of the 64x64 stage, a self- and a cross-attention each; none at
-   80 or 160, which run dense); peak memory under 80 GB; at the same
-   params (the output convolution drawn small), batch, t and noise, the
-   loss within 0.02 and every gradient at cosine >= 0.99 of the plain
-   attention path.  Printed: step time, images/s, a profiled step's
-   device time by kernel and by class (convolution, flash attention,
-   matmul, norm, optimizer).  Then the tiny fp32 UNet at 16x16, kernel
+   finite losses; every step exactly 32 K1, 32 K2, 32 K3 and 32 Delta
+   launches, all on ``sm90``: 10 at head dim 40, 10 at 80 and 12 at 160
+   (the five transformer blocks of each of the 64x64, 32x32 and 16x16
+   stages and the middle block's one, a self- and a cross-attention
+   each); peak memory under 80 GB; at the same params (the output
+   convolution drawn small), batch, t and noise, the loss within 0.02 and
+   every gradient at cosine >= 0.99 of the plain attention path (plain
+   in every stage where the kernel path runs the kernels).  Printed: step
+   time, images/s, a profiled step's device time by kernel and by class
+   (convolution, flash attention, matmul, norm, optimizer).  Then the
+   tiny fp32 UNet at 16x16, kernel
    path against plain path over 6 AdamW steps: losses within 1e-4,
    every K1, K2 and K3 launch on ``mma``, at head dims 16 and 32.
 17. ``train_bert_base``: the port's BERT example
@@ -311,12 +316,15 @@ its rank alive through the coordinator's restart, and the provisioner's
 first save call dilutes the ledger's early ``data_wait`` share, so the
 shrink comes early enough for the degrade to land inside the run.
 
-The ``kernel`` and ``kernel_bwd`` phases also hold the head dims 32 and
-40 (``_head_dim_cases``): the UNet's 64x64 self- and cross-attention
-(B = 2, 4096 queries over 4096 and 77 keys, 8 heads of 40) on ``sm90``,
-D = 32 and 40 with causality, offsets and GQA on ``sm90``, fp32 at both
-on ``mma``, a GQA group of 3 at D = 40 (bf16 ``mma``) and a bf16 call of
-16 rows at D = 40, which lands on ``mma``.
+The ``kernel`` and ``kernel_bwd`` phases also hold the head dims 32, 40,
+80 and 160 (``_head_dim_cases``): every attention call of the UNet at
+batch 2 and 8 heads (the 64x64 stage's at D = 40, 4096 queries over 4096
+and 77 keys; the 32x32 stage's at 80, 1024 over 1024 and 77; the 16x16
+stage's and the middle block's at 160, 256 over 256 and 77 and 64 over
+64 and 77) on ``sm90``; D = 32, 40, 80 and 160 with causality, offsets
+and GQA on ``sm90``, fp32 at each on ``mma``, a GQA group of 3 at 40, 80
+and 160 (bf16 ``mma``) and a bf16 call of 16 rows at each, which lands
+on ``mma``.
 
 Then a ``{"kernels": [...]}`` line (one entry per kernel variant with
 the head dims it is built for, each launched on a path above, and the
@@ -447,9 +455,67 @@ def phase_build():
     bad = _unwritten_uniform_reads(_build._nvcc(), libs)
     if bad:
         raise AssertionError(f"cp.async reads unwritten uniform registers: {bad}")
+    usage = _ptxas_usage(logs, WIDE_HEAD_DIMS)
+    for name, row in sorted(usage.items()):
+        print(f"ptxas {name}: {row.get('registers')} registers, "
+              f"{row.get('spill_stores')} / {row.get('spill_loads')} bytes "
+              "spilled (stores / loads)", flush=True)
+    # K1, K2 and K3 sm90 at D = 160: a wgmma accumulator that spills is
+    # serialized, so their designs keep every accumulator in registers.
+    spilled = {n: r for n, r in usage.items() if "_sm90_kernel" in n
+               and n.endswith(",160>")
+               and r.get("spill_stores", 0) + r.get("spill_loads", 0)}
+    if spilled:
+        raise AssertionError(f"sm90 kernels at D = 160 spill: {spilled}")
     return {"built": sorted(logs),
             "libraries": [str(lib.relative_to(HERE)) for lib in libs],
-            "cp_async_unwritten_uniform_reads": bad}
+            "cp_async_unwritten_uniform_reads": bad,
+            "ptxas_at_head_dims": {"head_dims": list(WIDE_HEAD_DIMS),
+                                   "kernels": usage}}
+
+
+# Head dims whose ptxas register and spill report the build phase prints.
+WIDE_HEAD_DIMS = (80, 160)
+
+
+def _ptxas_usage(logs, head_dims):
+    """From ``nvcc -Xptxas -v`` output ({source: log}): each kernel
+    instantiation at one of ``head_dims`` as ``"<kernel><dtype,D>"``
+    (dtype ``bf16``, ``fp32`` or ``-`` for the bf16-only sm90 kernels) ->
+    registers a thread, spill stores and loads and stack frame in bytes.
+    A library loaded without a build in this run has no log and no rows."""
+    import re
+
+    # the kernel's name follows its file's anonymous-namespace prefix
+    name_re = re.compile(r"(\w+?_kernel)I(.*?)Li(\d+)E")
+    out = {}
+    for log in logs.values():
+        current = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                k = name_re.search(m.group(1))
+                current = None
+                if k and int(k.group(3)) in head_dims:
+                    dtype = ("bf16" if "bfloat16" in k.group(2) else "fp32"
+                             if k.group(2) == "f" else "-")
+                    kernel = k.group(1)[k.group(1).rindex("flash_"):]
+                    current = f"{kernel}<{dtype},{k.group(3)}>"
+                    out[current] = {}
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out[current].update(stack=int(m.group(1)),
+                                    spill_stores=int(m.group(2)),
+                                    spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[current]["registers"] = int(m.group(1))
+                current = None
+    return out
 
 
 def _unwritten_uniform_reads(nvcc, libs):
@@ -599,16 +665,41 @@ def _kernel_cases(torch):
 
 
 def _head_dim_cases(torch):
-    """The head dims 32 and 40 (D = 40 on a zero-padded 64-column tile in
-    sm90, a 48-column one in bf16 mma): the SD-1.5 UNet's 64x64 stage
-    (B = 2, 4096 positions, 8 heads of 40; the self-attention and the
+    """The head dims 32, 40, 80 and 160 (D = 40, 80 and 160 on zero-padded
+    tiles of 64, 128 and 192 columns in sm90; D = 40 on a 48-column one in
+    bf16 mma, 80 and 160 on padded rows): every attention call of the
+    SD-1.5 UNet at batch 2 and 8 heads (the 64x64 stage at D = 40, 4096
+    positions; the 32x32 stage at 80, 1024; the 16x16 stage at 160, 256,
+    and the middle block at 160, 64; each a self-attention and a
     cross-attention over the 77-token context), D = 32 in bf16 with
-    causality, offsets and GQA, D = 40 likewise, fp32 at both on mma, a
-    GQA group of 3 at D = 40 (bf16 mma), and, for K1 only, a bf16 call of
-    16 rows at D = 40, which the decode variant lacks (mma).  Each
-    entry: (label, kwargs, forward only)."""
+    causality, offsets and GQA, D = 40, 80 and 160 likewise, fp32 at each
+    on mma, a GQA group of 3 at 40, 80 and 160 (bf16 mma), and, for K1
+    only, a bf16 call of 16 rows at each of 40, 80 and 160, which the
+    decode variant lacks (mma).  Each entry: (label, kwargs, forward
+    only)."""
     bf, f32 = torch.bfloat16, torch.float32
-    return [
+    unet = [(f"unet_{name}_d{d}", dict(b=2, h=8, hkv=8, d=d, sq=sq, sk=sk,
+                                       dtype=bf, causal=False), False)
+            for name, d, sq, sk in (
+                ("self", 80, 1024, 1024), ("cross", 80, 1024, 77),
+                ("self", 160, 256, 256), ("cross", 160, 256, 77),
+                ("mid_self", 160, 64, 64), ("mid_cross", 160, 64, 77))]
+    wide = []
+    for d in (80, 160):
+        wide += [
+            (f"bf16_d{d}_gqa2_ragged", dict(b=2, h=8, hkv=4, d=d, sq=200,
+                                            sk=300, dtype=bf, q_offset=64),
+             False),
+            (f"bf16_d{d}_gqa3", dict(b=2, h=6, hkv=2, d=d, sq=64, sk=128,
+                                     dtype=bf, q_offset=32), False),
+            (f"bf16_d{d}_16_rows", dict(b=2, h=8, hkv=8, d=d, sq=16, sk=77,
+                                        dtype=bf, causal=False), True)]
+    wide += [
+        ("fp32_d80_cross", dict(b=2, h=8, hkv=8, d=80, sq=256, sk=77,
+                                dtype=f32, causal=False), False),
+        ("fp32_d160_gqa2", dict(b=2, h=4, hkv=2, d=160, sq=64, sk=96,
+                                dtype=f32, q_offset=32), False)]
+    return unet + wide + [
         ("unet_self_d40", dict(b=2, h=8, hkv=8, d=40, sq=4096, sk=4096,
                                dtype=bf, causal=False), False),
         ("unet_cross_d40", dict(b=2, h=8, hkv=8, d=40, sq=4096, sk=77,
@@ -3975,11 +4066,15 @@ def phase_provision_llama3_1b(results):
 
 
 # ---- phases 16 and 17: the SD-1.5 UNet and BERT-base ----------------------
-# The UNet's attention per training step, no remat: each of the five
-# transformer blocks of the 64x64 stage (two down, three up) runs a self-
-# and a cross-attention at head dim 40 on the kernels, one K1, K2, K3 and
-# Delta each; the 32x32 and 16x16 stages (80, 160) run dense.
-UNET_LAUNCHES_PER_STEP = 10
+# The UNet's attention per training step, no remat, by head dim
+# (tpucfn_torch/models/unet.py: a SpatialTransformer after each ResBlock of
+# an attention stage, blocks_per_stage = 2 down and 3 up, and one in the
+# middle block; each a self- and a cross-attention, one K1, K2, K3 and
+# Delta each): the 64x64, 32x32 and 16x16 stages' five blocks at 40, 80
+# and 160 (320, 640 and 1280 channels over 8 heads), the middle block's
+# one at 160.
+UNET_LAUNCHES_BY_HEAD_DIM = {40: 10, 80: 10, 160: 12}
+UNET_LAUNCHES_PER_STEP = sum(UNET_LAUNCHES_BY_HEAD_DIM.values())  # 32
 UNET_STEPS = 6
 QUIET_FROM_STEP = 4  # the first step with no checkpoint write in flight
 UNET_CLASSES = {"flash attention": ("flash_",),
@@ -4114,8 +4209,10 @@ def phase_train_unet_sd15(results):
                     "k3_sm90": n, "k3_mma": 0, "k3_fma": 0}
         assert len(per_step) == UNET_STEPS and all(
             c == expected for c in per_step), (per_step, expected)
-        # every launch at D = 40: none at 80 or 160
-        assert by_dim == {k: {40: n * UNET_STEPS} for k in by_dim}, by_dim
+        # every attention at its stage's head dim, exactly
+        assert by_dim == {k: {d: c * UNET_STEPS for d, c in
+                              UNET_LAUNCHES_BY_HEAD_DIM.items()}
+                          for k in by_dim}, by_dim
         assert peak_gib < 80, peak_gib
         quiet = rec["step_s"][QUIET_FROM_STEP - 1:]
         step_ms = sum(quiet) / len(quiet) * 1e3

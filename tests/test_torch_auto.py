@@ -131,11 +131,11 @@ def test_port_defaults_take_the_kernels_on_the_card(table, on_card,
                                          device=device)
 
 
-@pytest.mark.parametrize("d,dtype", [(80, torch.bfloat16),
-                                     (160, torch.float32),
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16),
+                                     (256, torch.float32),
                                      (64, torch.float16),
                                      (128, torch.float16)],
-                         ids=["d80-bf16", "d160-fp32", "d64-fp16",
+                         ids=["d96-bf16", "d256-fp32", "d64-fp16",
                               "d128-fp16"])
 def test_unbuilt_head_dim_or_dtype_stays_dense_on_the_card(table, d, dtype,
                                                            monkeypatch):

@@ -1,8 +1,8 @@
-"""Head dims 32 and 40 on the CPU: the plain versions of K1 and of the
-backward against the JAX package's ``flash_attention`` in interpret mode
-at the UNet's shapes, the variant rules, the wrappers' head-dim checks
-and the dispatcher's decisions on a ``"cuda"`` device string (no card
-here)."""
+"""Head dims 32, 40, 80 and 160 on the CPU: the plain versions of K1 and
+of the backward against the JAX package's ``flash_attention`` in
+interpret mode at the UNet's shapes, the variant rules, the wrappers'
+head-dim checks and the dispatcher's decisions on a ``"cuda"`` device
+string (no card here)."""
 
 import types
 
@@ -30,11 +30,14 @@ def _inputs(b, sq, sk, h, hkv, d, seed=0):
 
 
 # The reference's UNet shapes (tests/test_flash_attention.py): 2 x 256
-# queries, 8 heads, D = 40 over 256 keys and over the 77-key context;
-# and D = 32, the tiny UNet's middle block.
+# queries, 8 heads, D = 40 over 256 keys and over the 77-key context, and
+# D = 160 over the context; D = 80 and 160 (the 32x32 and 16x16 stages)
+# likewise; and D = 32, the tiny UNet's middle block.
 @pytest.mark.parametrize("d,sk,causal", [
     (40, 256, False), (40, 77, False), (40, 256, True),
-    (32, 256, False), (32, 77, False), (32, 256, True)])
+    (32, 256, False), (32, 77, False), (32, 256, True),
+    (80, 256, False), (80, 77, False), (80, 256, True),
+    (160, 256, False), (160, 77, False), (160, 256, True)])
 def test_plain_forward_matches_interpret_flash(d, sk, causal):
     q, k, v = _inputs(2, 256, sk, 8, 8, d)
     want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
@@ -46,7 +49,9 @@ def test_plain_forward_matches_interpret_flash(d, sk, causal):
 
 @pytest.mark.parametrize("d,sk,causal,hkv", [
     (40, 64, False, 4), (40, 77, False, 4), (40, 64, True, 2),
-    (32, 64, False, 4), (32, 77, False, 2), (32, 64, True, 4)])
+    (32, 64, False, 4), (32, 77, False, 2), (32, 64, True, 4),
+    (80, 64, False, 4), (80, 77, False, 2), (80, 64, True, 4),
+    (160, 64, False, 4), (160, 77, False, 4), (160, 64, True, 2)])
 def test_plain_backward_matches_interpret_flash(d, sk, causal, hkv):
     """``flash_attention``'s gradients through the plain backward
     (``flash_bwd_plain``) against ``jax.grad`` of the reference's kernel
@@ -76,6 +81,15 @@ def test_plain_backward_matches_interpret_flash(d, sk, causal, hkv):
     (BF, 1, 4, 2, None, "decode"),  # no head dim: the old rule
     (F32, 256, 2, 2, 32, "mma"),    # the tiny fp32 UNet's middle block
     (F32, 4096, 8, 8, 40, "mma"),
+    (BF, 1024, 8, 8, 80, "sm90"),   # the UNet's 32x32 self-attention
+    (BF, 256, 8, 8, 160, "sm90"),   # the 16x16 stage
+    (BF, 64, 8, 8, 160, "sm90"),    # the middle block: one 64-row tile
+    (BF, 64, 6, 2, 80, "mma"),      # a group of 3
+    (BF, 64, 6, 2, 160, "mma"),
+    (BF, 16, 8, 8, 80, "mma"),      # <= 16 rows, decode lacks D = 80
+    (BF, 2, 8, 1, 160, "mma"),      # <= 16 rows, decode lacks D = 160
+    (F32, 1024, 8, 8, 80, "mma"),
+    (F32, 64, 8, 8, 160, "mma"),
 ])
 def test_fwd_variant_takes_the_head_dim(dtype, sq, h, hkv, d, want):
     assert fa.fwd_variant(dtype, sq, h, hkv, d) == want
@@ -85,7 +99,7 @@ def test_fwd_variant_takes_the_head_dim(dtype, sq, h, hkv, d, want):
 
 @pytest.mark.parametrize("dtype,h,hkv,want", [
     (BF, 8, 8, "sm90"), (BF, 6, 2, "mma"), (F32, 8, 8, "mma")])
-@pytest.mark.parametrize("d", [32, 40])
+@pytest.mark.parametrize("d", [32, 40, 80, 160])
 def test_backward_variants_take_the_head_dim(dtype, h, hkv, want, d):
     assert fa.dkv_variant(dtype, h, hkv) == fa.dq_variant(dtype, h, hkv) == want
     assert d in fa.VARIANT_HEAD_DIMS[want] and d in fa.HEAD_DIMS
@@ -100,7 +114,7 @@ def _stub(d, dtype=BF):
                                  data_ptr=lambda: 256)
 
 
-@pytest.mark.parametrize("d", [16, 32, 40, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128, 160])
 @pytest.mark.parametrize("variant", ["sm90", "mma", "decode", "fma"])
 def test_check_cuda_checks_the_variants_head_dims(variant, d):
     """The check before a launch holds the head dim to the variant about
@@ -113,7 +127,7 @@ def test_check_cuda_checks_the_variants_head_dims(variant, d):
             fa._check_cuda("flash_fwd", {"q": t}, variant=variant)
 
 
-@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("d", [96, 256])
 def test_unbuilt_head_dims_still_raise(d):
     for variant in fa.VARIANT_HEAD_DIMS:
         with pytest.raises(ValueError, match="not in"):
@@ -130,7 +144,7 @@ def test_head_dims_are_those_every_reachable_variant_takes():
     reachable = [fa.VARIANT_HEAD_DIMS[v] for v in ("sm90", "mma")]
     for d in fa.HEAD_DIMS:
         assert all(d in dims for dims in reachable)
-    assert set(fa.HEAD_DIMS) == {16, 32, 40, 64, 128}
+    assert set(fa.HEAD_DIMS) == {16, 32, 40, 64, 80, 128, 160}
 
 
 # The SD-1.5 UNet's attentions at batch 2: the 64x64 stage (D = 40,
@@ -148,12 +162,12 @@ def port_defaults(monkeypatch):
 
 
 def test_dispatch_at_the_ports_defaults(port_defaults):
-    """Thresholds 0: on the card the kernels take D = 40, both the self-
-    and the cross-attention; D = 80 and 160 stay dense.  CPU tensors are
+    """Thresholds 0: on the card the kernels take every UNet call, the
+    self- and the cross-attention at D = 40, 80 and 160.  CPU tensors are
     always dense."""
     for s_q, s_kv, d in UNET_CALLS:
         assert auto.should_use_flash_full(
-            s_q, s_kv, d=d, dtype=BF, device="cuda") == (d == 40), (s_q, s_kv, d)
+            s_q, s_kv, d=d, dtype=BF, device="cuda"), (s_q, s_kv, d)
         assert not auto.should_use_flash_full(s_q, s_kv, d=d, dtype=BF,
                                               device="cpu")
     assert auto.should_use_flash_full(256, 256, d=32, dtype=F32,
@@ -180,8 +194,8 @@ def test_dispatch_at_the_references_thresholds(monkeypatch):
 def test_full_attention_auto_routes_the_unet_calls(port_defaults,
                                                    monkeypatch):
     """``full_attention_auto`` itself, with the device check answering as
-    the card would: the D = 40 calls reach ``flash_attention``, the others
-    the dense op."""
+    the card would: every UNet call reaches ``flash_attention``, none the
+    dense op."""
     import tpucfn_torch.ops.attention as dense_mod
 
     calls = []
@@ -192,9 +206,8 @@ def test_full_attention_auto_routes_the_unet_calls(port_defaults,
                         lambda q, k, v, **kw: (
                             calls.append(("dense", k.shape[1], q.shape[-1]))
                             or q))
-    for s_q, s_kv, d in UNET_CALLS[:4]:
+    for s_q, s_kv, d in UNET_CALLS:
         q = torch.zeros(1, s_q, 1, d, dtype=BF)
         kv = torch.zeros(1, s_kv, 1, d, dtype=BF)
         auto.full_attention_auto(q, kv, kv)
-    assert calls == [("flash", 4096, 40), ("flash", 77, 40),
-                     ("dense", 1024, 80), ("dense", 77, 80)]
+    assert calls == [("flash", s_kv, d) for _, s_kv, d in UNET_CALLS]

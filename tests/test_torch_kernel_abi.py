@@ -156,10 +156,11 @@ def test_mma_planner_fits_the_kernel():
     assert int(const["kRowsPerWarp"]) == fa.MMA_ROWS
     assert int(const["kMaxWarps"]) == fa.MMA_MAX_WARPS
     assert int(const["kMaxCluster"]) == fa.MMA_CLUSTER <= 8
-    tile = re.search(r"is_same<T, float>::value && D == (\d+) \? (\d+) : (\d+)",
+    tile = re.search(r"is_same<T, float>::value && D >= (\d+) \? (\d+) : (\d+)",
                      fwd).groups()
-    for dtype, d in ((F32, 16), (F32, 64), (F32, 128), (BF, 16), (BF, 128)):
-        want = int(tile[1]) if dtype == F32 and d == int(tile[0]) \
+    for dtype, d in ((F32, 16), (F32, 64), (F32, 80), (F32, 128), (F32, 160),
+                     (BF, 16), (BF, 80), (BF, 128), (BF, 160)):
+        want = int(tile[1]) if dtype == F32 and d >= int(tile[0]) \
             else int(tile[2])
         assert fa._mma_keys(dtype, d) == want
     bwd = (_build.CSRC / "flash_bwd_dkv_mma_sm90.cu").read_text()
@@ -184,6 +185,8 @@ def test_mma_dq_kernel_tiles_rows_as_k1_mma():
     (F32, 2, 96, 8, 4, 128, 160, (4, 32, 5)),    # fp32 D=128: 32-key tiles
     (BF, 2, 64, 6, 2, 64, 128, (4, 128, 1)),     # GQA 3: 2 bf16 tiles, 1 chunk
     (F32, 2, 2048, 32, 8, 64, 2048, (4, 2048, 1)),  # many rows: one chunk
+    (F32, 2, 64, 8, 8, 160, 77, (4, 32, 3)),     # fp32 D=160: 32-key tiles
+    (BF, 2, 16, 8, 8, 80, 77, (1, 128, 1)),      # bf16 D=80, 16 rows: mma
 ])
 def test_mma_fwd_plan(dtype, b, sq, h, hkv, d, sk, want):
     warps, chunk, n = fa._mma_fwd_plan(dtype, b, sq, h, hkv, d, sk)

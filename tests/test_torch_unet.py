@@ -219,7 +219,7 @@ def test_param_count_equals_the_reference(name):
 def test_sd15_attention_head_dims():
     """The SD-1.5 UNet's attention stages run at head dims 40, 80 and 160
     (64x64, 32x32, 16x16 and the middle block): the kernels are built for
-    40, the dispatcher keeps 80 and 160 dense."""
+    all three."""
     from tpucfn_torch.kernels.flash_attention import HEAD_DIMS
 
     cfg = UNetConfig.sd15()
@@ -227,7 +227,29 @@ def test_sd15_attention_head_dims():
             for m, a in zip(cfg.width_mults, cfg.attn_stages) if a}
     dims.add(cfg.base_width * cfg.width_mults[-1] // cfg.n_heads)
     assert dims == {40, 80, 160}
-    assert [d in HEAD_DIMS for d in sorted(dims)] == [True, False, False]
+    assert [d in HEAD_DIMS for d in sorted(dims)] == [True, True, True]
+
+
+def test_frozen_bind_leaves_the_callers_flags():
+    """A frozen bind (``from_state_dict`` without ``trainable``, through
+    ``bind_state_dict``) of parameters that require grad freezes the
+    model's own views of them: every flag of the caller's dict stays as it
+    was, and the model still shares the caller's storage."""
+    cfg = UNetConfig.tiny()
+    params = {k: torch.nn.Parameter(v) for k, v in tunet.init_unet_params(
+        cfg, generator=torch.Generator().manual_seed(0)).items()}
+    frozen = sorted(params)[0]
+    params[frozen].requires_grad_(False)  # a mixed dict: each flag kept
+    flags = {k: p.requires_grad for k, p in params.items()}
+    model = UNet.from_state_dict(cfg, params)
+    assert {k: p.requires_grad for k, p in params.items()} == flags
+    assert not any(p.requires_grad for p in model.parameters())
+    bound = model.state_dict(keep_vars=True)
+    assert set(bound) == set(params)
+    assert all(bound[k].data_ptr() == p.data_ptr() for k, p in params.items())
+    with torch.no_grad():
+        params[frozen].add_(1.0)  # an update in place shows in the model
+    assert torch.equal(bound[frozen], params[frozen])
 
 
 def test_ddpm_training_learns():

@@ -14,10 +14,10 @@ at 1e-5 unless ``--lr`` says otherwise and an EMA of the parameters
 (``--ema-decay``, 0.9999; 0 disables), ``transformer_rules`` and
 ``run_train_loop`` (checkpoints in ``--run-dir``, resumed on relaunch).
 The t and noise of each step come from the trainer's generator.  On the
-card the attention of the 64x64 stage (head dim 40: a 4096 x 4096
-self-attention and a 4096 x 77 cross-attention in each of its five
-transformer blocks) runs on the flash kernels; the 32x32 and 16x16
-stages (head dims 80 and 160) run dense.
+card every attention runs on the flash kernels: the 64x64 stage's at
+head dim 40 (a 4096 x 4096 self-attention and a 4096 x 77
+cross-attention in each of its five transformer blocks), the 32x32
+stage's at 80 and the 16x16 stage's and the middle block's at 160.
 
 Data parallel over the ranks; ``--fsdp`` > 1 and ``--tensor`` > 1 are
 refused (ROADMAP Queue 1 C2).

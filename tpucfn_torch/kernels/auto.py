@@ -12,11 +12,11 @@ defaults:
   tuned-and-winning (>= 1.05) -> flash, tuned-and-losing -> dense,
   never measured -> flash only at ``untuned_flash_min_s()`` and beyond.
   A head dim or dtype the kernels are not built for (``HEAD_DIMS``,
-  ``DTYPES`` of :mod:`tpucfn_torch.kernels.flash_attention`: D = 80 and
-  160, the SD-1.5 UNet's 32x32 and 16x16 stages, and fp16, say) takes the
-  dense path, which the JAX package runs those shapes on as well (below
-  its length threshold).  D = 32 and 40, the UNet's 64x64 stage, run on
-  the kernels.
+  ``DTYPES`` of :mod:`tpucfn_torch.kernels.flash_attention`: D = 96 or
+  256, or fp16, say) takes the dense path, which the JAX package runs
+  short sequences on as well (below its length threshold).  Every head
+  dim of the JAX package's models is built, so every attention of the
+  SD-1.5 UNet (D = 40, 80 and 160) runs on the kernels.
 * ``flash_threshold()`` — ``TPUCFN_FLASH_MIN_S`` (default 0).
 * ``untuned_flash_min_s()`` — ``TPUCFN_FLASH_UNTUNED_MIN_S`` (default 0).
 

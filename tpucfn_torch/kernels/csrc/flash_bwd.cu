@@ -7,8 +7,9 @@
 //    393).  Bound by the bytes of O and dO it reads: a CTA covers 32
 //    positions x a run of heads of one batch row, each thread loads 16-byte
 //    vectors of O and dO for 8 rows before any math (a row takes D / 8
-//    lanes in bf16, D / 4 in fp32; loads marked evict-first, as the data
-//    is read once), the lanes of a row reduce by shuffles,
+//    lanes in bf16, D / 4 in fp32, up to one warp: fp32 at D = 160 takes
+//    two vectors a lane; loads marked evict-first, as the data is read
+//    once), the lanes of a row reduce by shuffles,
 //    and the results go out through shared memory so that each head's 32
 //    positions leave as one 128-byte store.
 //  * flash_bwd_dq (K2): replaces the Pallas TPU kernel `_bwd_dq_kernel`.
@@ -366,9 +367,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
 
 // Delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d].  A CTA covers
 // kDeltaPos positions x HEADS heads of batch row blockIdx.z; its rows run
-// head-fastest (memory order), a row is L lanes of one 16-byte vector each
-// (its VECS vectors rounded up to a power of two: at D = 40 the lanes past
-// the row's 5 (bf16) or 10 (fp32) vectors load nothing and add zero), and
+// head-fastest (memory order), a row is L lanes of VPL 16-byte vectors
+// each (VPL = 1 up to 32 vectors a row, 2 for fp32 at D = 160's 40; the
+// lane count rounded up to a power of two: at D = 40 the lanes past the
+// row's 5 (bf16) or 10 (fp32) vectors load nothing and add zero), and
 // thread t takes rows t / L + j * (kThreads / L), j < kDeltaRows.
 constexpr int kDeltaPos = 32;  // positions per CTA: one 128-byte run of Delta per head
 constexpr int kDeltaRows = 8;  // rows per thread, all loads in flight together
@@ -378,7 +380,8 @@ __host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow
 template <typename T, int D>
 struct DeltaCfg {
   static constexpr int VECS = D / Vec<T>::N;              // 16-byte vectors per row
-  static constexpr int L = pow2_ceil(VECS);               // lanes per row
+  static constexpr int VPL = (VECS + 31) / 32;            // vectors per lane: a row in one warp
+  static constexpr int L = pow2_ceil((VECS + VPL - 1) / VPL);  // lanes per row
   static constexpr int PASS = kThreads / L;               // rows per pass of the CTA
   static constexpr int HEADS = PASS * kDeltaRows / kDeltaPos;
   static_assert(HEADS >= 1 && HEADS * kDeltaPos == PASS * kDeltaRows, "whole runs of positions");
@@ -388,30 +391,37 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_delta_kernel(const T* o, const T* dout, float* delta, int Sq, int H) {
   using C = DeltaCfg<T, D>;
-  constexpr int L = C::L, HEADS = C::HEADS;
+  constexpr int L = C::L, HEADS = C::HEADS, VPL = C::VPL;
   __shared__ float tile[HEADS][kDeltaPos + 1];
   const int s0 = blockIdx.x * kDeltaPos, h0 = blockIdx.y * HEADS, b = blockIdx.z;
   const int part = threadIdx.x % L, first = threadIdx.x / L;
-  uint4 ov[kDeltaRows], dv[kDeltaRows];
+  uint4 ov[kDeltaRows][VPL], dv[kDeltaRows][VPL];
 #pragma unroll
   for (int j = 0; j < kDeltaRows; ++j) {
     const int row = first + j * C::PASS, s = s0 + row / HEADS, h = h0 + row % HEADS;
-    ov[j] = dv[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (s < Sq && h < H && part < C::VECS) {
-      const size_t off = ((size_t)(b * Sq + s) * H + h) * D + part * Vec<T>::N;
-      // read once: evict-first in L2, so no other line is pushed out for them
-      ov[j] = __ldcs(reinterpret_cast<const uint4*>(o + off));
-      dv[j] = __ldcs(reinterpret_cast<const uint4*>(dout + off));
+#pragma unroll
+    for (int u = 0; u < VPL; ++u) {
+      const int vec = part + u * L;
+      ov[j][u] = dv[j][u] = make_uint4(0u, 0u, 0u, 0u);
+      if (s < Sq && h < H && vec < C::VECS) {
+        const size_t off = ((size_t)(b * Sq + s) * H + h) * D + vec * Vec<T>::N;
+        // read once: evict-first in L2, so no other line is pushed out for them
+        ov[j][u] = __ldcs(reinterpret_cast<const uint4*>(o + off));
+        dv[j][u] = __ldcs(reinterpret_cast<const uint4*>(dout + off));
+      }
     }
   }
 #pragma unroll
   for (int j = 0; j < kDeltaRows; ++j) {
-    float fo[Vec<T>::N], fd[Vec<T>::N];
-    Vec<T>::to_f32(ov[j], fo);
-    Vec<T>::to_f32(dv[j], fd);
     float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < Vec<T>::N; ++e) acc = fmaf(fd[e], fo[e], acc);
+    for (int u = 0; u < VPL; ++u) {
+      float fo[Vec<T>::N], fd[Vec<T>::N];
+      Vec<T>::to_f32(ov[j][u], fo);
+      Vec<T>::to_f32(dv[j][u], fd);
+#pragma unroll
+      for (int e = 0; e < Vec<T>::N; ++e) acc = fmaf(fd[e], fo[e], acc);
+    }
 #pragma unroll
     for (int w = L / 2; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
     const int row = first + j * C::PASS;
@@ -442,7 +452,9 @@ int dispatch_delta(int D, const void* o, const void* dout, float* delta, int B, 
     case 32: return launch_delta<T, 32>(o, dout, delta, B, Sq, H, s);
     case 40: return launch_delta<T, 40>(o, dout, delta, B, Sq, H, s);
     case 64: return launch_delta<T, 64>(o, dout, delta, B, Sq, H, s);
+    case 80: return launch_delta<T, 80>(o, dout, delta, B, Sq, H, s);
     case 128: return launch_delta<T, 128>(o, dout, delta, B, Sq, H, s);
+    case 160: return launch_delta<T, 160>(o, dout, delta, B, Sq, H, s);
     default: return -1;
   }
 }

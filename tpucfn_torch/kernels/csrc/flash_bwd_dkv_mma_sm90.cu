@@ -48,12 +48,13 @@
 //    k-slice of the second products is permuted so that P^T's and dS^T's
 //    accumulator registers are their A fragments with no shuffle.
 //
-// Head dims 16, 32, 40, 64 and 128.  bf16 reduces over D in 16-column
-// k-steps, so a D = 40 row (five 16-byte chunks) is staged as 48
-// columns, the sixth chunk zero-filled by cp.async, in a 64-column
+// Head dims 16, 32, 40, 64, 80, 128 and 160.  bf16 reduces over D in
+// 16-column k-steps, so a D = 40 row (five 16-byte chunks) is staged as
+// 48 columns, the sixth chunk zero-filled by cp.async, in a 64-column
 // swizzled tile; fp32 (ten chunks a row) reduces in 8-column k-steps,
-// which 40 fills.  Products into D columns run over D / 8 n-tiles and
-// store only those.
+// which 40 fills.  80 and 160 are whole k-steps; their bf16 rows (10 and
+// 20 chunks) are padded by one chunk where the others are swizzled.
+// Products into D columns run over D / 8 n-tiles and store only those.
 //
 // Layout: q, dO (B, Sq, H, D); k, v, dK, dV (B, Sk, Hkv, D), one dtype
 // (bf16 or fp32), contiguous, 16-byte aligned; lse, delta, dlse (B, H, Sq)
@@ -112,16 +113,21 @@ struct Params {
 template <typename T, int D>
 struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
-  // Rows of a staged tile, 128 (64 for fp32 at D = 128: shared memory),
-  // and of one warp's quarter of it.
-  static constexpr int ROWS = F32 && D == 128 ? 64 : 128;
+  // Rows of a staged tile, 128 (64 for fp32 at D = 128 and 160: shared
+  // memory; for bf16 at D = 160: registers, beside dK and dV's 160), and of
+  // one warp's quarter of it.
+  static constexpr int ROWS = (F32 ? D >= 128 : D > 128) ? 64 : 128;
   static constexpr int BQ = ROWS / kWarps;
   // bf16 reduces over D in 16-column k-steps, so D = 40 is staged as a
   // 48-column row, its last 16 bytes zero-filled, in a 64-column tile (the
   // XOR swizzle spans a power of two of 16-byte columns).
   static constexpr int DK = F32 ? D : (D + 15) / 16 * 16;   // columns reduced over
   static constexpr int DS = F32 || D != 40 ? D : 64;        // bf16 columns of a tile row
-  static constexpr int PITCH = F32 ? (D + 4) * 4 : DS * 2;  // bytes of a row
+  // bf16 rows of a power of two of 16-byte columns are XOR-swizzled; the
+  // 10 and 20 of D = 80 and 160 cannot be, so their rows are padded by one
+  // 16-byte column, which puts any 8 consecutive rows on distinct banks.
+  static constexpr bool SWZ = !F32 && (DS / 8 & (DS / 8 - 1)) == 0;
+  static constexpr int PITCH = F32 ? (D + 4) * 4 : SWZ ? DS * 2 : DS * 2 + 16;  // bytes of a row
   static constexpr int QD = D * (int)sizeof(T) / 16;        // 16-byte columns of a row
   static constexpr int QZ = DK * (int)sizeof(T) / 16;       // ... staged (past QD: zeros)
   static constexpr int QN = DS / 8 < 8 ? DS / 8 : 8;        // bf16 swizzle span
@@ -134,8 +140,8 @@ struct Cfg {
   static constexpr int RED = (kWarps - 1) * 2 * kWarpKeys * D * 4;
   static constexpr int SMEM = MAIN > RED ? MAIN : RED;
   __device__ static uint32_t at(int row, int q) {
-    if constexpr (F32) return row * PITCH + q * 16;
-    else return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
+    if constexpr (SWZ) return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
+    else return row * PITCH + q * 16;
   }
 };
 
@@ -426,7 +432,9 @@ int dispatch_d(int D, const Params& p, cudaStream_t s) {
     case 32: return launch<T, 32>(p, s);
     case 40: return launch<T, 40>(p, s);
     case 64: return launch<T, 64>(p, s);
+    case 80: return launch<T, 80>(p, s);
     case 128: return launch<T, 128>(p, s);
+    case 160: return launch<T, 160>(p, s);
     default: return kErrHeadDim;
   }
 }

@@ -16,7 +16,7 @@
 // FlashAttention-3's backward, with keys as the wgmma M dimension.
 //  * One CTA per (64-key block, KV head, batch row); its consumer
 //    warpgroup keeps K and V in shared memory (one TMA load each) and dK,
-//    dV in fp32 registers.
+//    dV in fp32 registers (at D = 160 one after the other, below).
 //  * A producer warp streams the group's packed query rows (position
 //    major, as in the forward) in tiles of 64: Q and dO by TMA, 4-D boxes
 //    of 64 / rep positions x rep heads, into a 2-stage ring guarded by
@@ -33,15 +33,22 @@
 //    while dP^T is in flight, which ptxas answers by serializing the wgmma
 //    pipeline (C7515); registers of its own for P^T cost more: at D = 64
 //    two CTAs per SM leave 168 registers a thread, and it spills.)
-//  * D = 32 tiles use the 64-byte swizzle; D = 40 runs on zero-padded
-//    64-column tiles (sm90.cuh, tile_cols): S^T and dP^T reduce over 48
-//    columns, dK and dV are accumulated over 64 and 40 are stored.
-//  * Under causality a key block starts at the first row that can see it.
-//    Blocks are dispatched heaviest first across the whole grid: key block
-//    0 of every (KV head, batch row), then block 1, and so on.
-//  * Masks are computed only for tiles where one can apply (the ragged Sk
-//    edge, the diagonal under causality, segment ids); padded query rows
-//    carry LSE = +inf, so their P is exactly 0 without a compare.
+//  * D = 32 tiles use the 64-byte swizzle; D = 40, 80 and 160 run on
+//    zero-padded tiles of 64, 128 and 192 columns (sm90.cuh, tile_cols):
+//    S^T and dP^T reduce over 48, 80 and 160 columns, dK and dV are
+//    accumulated over the padded width and D are stored.
+//  * Registers.  Up to 128 columns the consumer warpgroup holds both
+//    accumulators (2 x 64 registers a thread at 128) beside S^T, dP^T and
+//    their bf16 fragments.  At 192 columns (D = 160) dK and dV alone would
+//    take 192 registers a thread and the whole more than the 255 a thread
+//    may have, and a wgmma accumulator that spills is serialized.  So
+//    there the warpgroup makes two passes over the streamed query tiles,
+//    each with one 96-register accumulator: S^T, P^T and dV += P^T dO,
+//    then S^T, dP^T, dS^T and dK += dS^T Q (Q and dO are streamed twice
+//    and S^T computed twice: five products a tile where one pass does
+//    four).  A second consumer warpgroup, one for dV and one for dK, was
+//    tried first: ptxas holds a CTA of 288 threads to 168 registers a
+//    thread (as for 384), and the dK warpgroup spilled 896 bytes.
 //
 // Numerics.  K Q^T and V dO^T take exact bf16 inputs with fp32
 // accumulation; P^T and dS^T are rounded to bf16 as operands of the second
@@ -64,10 +71,15 @@ constexpr int kKeys = 64;      // keys per CTA: the M of every product
 constexpr int kBQ = 64;        // packed query rows per streamed tile
 constexpr int kStages = 2;     // Q/dO ring depth
 constexpr int kThreads = 160;  // warps 0-3 consume, warp 4 produces
+constexpr int kDV = 1, kDK = 2;  // what a pass over the query tiles accumulates
 
 template <int D>
 struct Cfg {
   static constexpr int DT = tile_cols(D);   // columns of a shared-memory tile
+  // Passes over the query tiles: one for both accumulators, or at 192
+  // columns one for dV, then one for dK (registers).
+  static constexpr int PASSES = DT > 128 ? 2 : 1;
+  static constexpr int MIN_CTAS = DT >= 128 ? 1 : 2;  // CTAs an SM holds (registers)
   static constexpr int TILE = 64 * DT * 2;  // bytes of one 64 x DT bf16 tile
   static constexpr int OFF_V = TILE;
   static constexpr int OFF_Q = 2 * TILE;
@@ -89,8 +101,167 @@ struct Params {
   float scale;
 };
 
+// What the consumer warpgroup needs of its CTA.
+struct Block {
+  const bf16* sK;
+  const bf16* sV;
+  const bf16* sQ;
+  const bf16* sDO;
+  const float* sStat;
+  uint64_t* full;
+  uint64_t* empty;
+  int b, hk, rep, total, k0, r_begin, n_tiles;
+};
+
+// One pass of the consumer warpgroup over the streamed query tiles: dV
+// (kRole & kDV) and dK (kRole & kDK) of the block's 64 keys, accumulated
+// in registers and stored at the end.  The ring's tiles are numbered
+// across passes: this pass reads tiles `base` to `base + n_tiles - 1`.
+template <int D, int kRole>
+__device__ __forceinline__ void consume(const Params& p, const Block& c, int warp, int lane,
+                                        int base) {
+  using C = Cfg<D>;
+  constexpr int DT = C::DT;
+  constexpr bool DV = kRole & kDV, DK = kRole & kDK;
+  // Thread (warp, lane) holds keys kr and kr + 8 of the block, kr = 16 warp
+  // + lane / 4, and columns 8 n + 2 (lane % 4) + {0, 1}: query rows of the
+  // S^T / dP^T tiles, head-dim columns of dK / dV.
+  const int kr = warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  int kpos[2], kseg[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = c.k0 + kr + 8 * i;
+    if (p.q_seg != nullptr && kpos[i] < p.Sk) kseg[i] = p.kv_seg[c.b * p.Sk + kpos[i]];
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const long long last_key = (long long)p.k_offset + c.k0 + kKeys - 1;
+
+  float dk[DK ? DT / 2 : 1], dv[DV ? DT / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < DT / 2; ++i) {
+    if constexpr (DK) dk[i] = 0.f;
+    if constexpr (DV) dv[i] = 0.f;
+  }
+  float pt[kBQ / 2], dpt[DK ? kBQ / 2 : 1];  // S^T then P^T; dP^T then dS^T
+
+  // S^T = K Q_t^T (and for dK dP^T = V dO_t^T), each a committed group.
+  auto issue_sdp = [&](int t) {
+    const int s = (base + t) % kStages;
+    mbar_wait(c.full + s, ((base + t) / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < k_steps(D); ++kk)
+      wgmma_ss<kBQ>(pt, desc_kmajor<D>(c.sK, kKeys, kk), desc_kmajor<D>(c.sQ + s * kBQ * DT, kBQ, kk), kk > 0);
+    wgmma_commit();
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < k_steps(D); ++kk)
+        wgmma_ss<kBQ>(dpt, desc_kmajor<D>(c.sV, kKeys, kk), desc_kmajor<D>(c.sDO + s * kBQ * DT, kBQ, kk), kk > 0);
+      wgmma_commit();
+    }
+  };
+
+  // Software pipeline: S^T and dP^T of tile t + 1 are issued right behind
+  // tile t's dV/dK products, so the tensor cores run on while P^T of the
+  // next tile is computed.  At the top of iteration t the groups in flight
+  // are dV/dK of tile t - 1, then S^T (and dP^T) of tile t.
+  if (c.n_tiles > 0) issue_sdp(0);
+  for (int t = 0; t < c.n_tiles; ++t) {
+    const int s = (base + t) % kStages;
+    const int row0 = c.r_begin + t * kBQ;
+    const float* st = c.sStat + s * 2 * kBQ;
+    if constexpr (DK) wgmma_wait<1>();  // dV/dK of tile t - 1 and S^T of tile t
+    else wgmma_wait<0>();
+    fence_regs<kBQ / 2>(pt);
+    if constexpr (DV) fence_regs<DT / 2>(dv);
+    if constexpr (DK) fence_regs<DT / 2>(dk);
+    if (t > 0 && lane == 0) mbar_arrive(c.empty + (base + t - 1) % kStages);
+
+    // P^T = exp(S^T * scale - LSE[column]) on live pairs.
+    const bool masked = c.k0 + kKeys > p.Sk ||
+                        (p.causal && (long long)p.q_offset + row0 / c.rep < last_key) ||
+                        p.q_seg != nullptr;
+#pragma unroll
+    for (int n = 0; n < kBQ / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * n + col0 + j;
+        const float l2 = st[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n + 2 * i + j;
+          float pr = exp2_ftz(fmaf(pt[e], scale_log2, -l2));
+          if (masked) {
+            const int R = row0 + col, qp = R / c.rep;
+            bool keep = kpos[i] < p.Sk;
+            if (p.causal) keep = keep && (long long)p.q_offset + qp >= (long long)p.k_offset + kpos[i];
+            if (p.q_seg != nullptr) keep = keep && R < c.total && p.q_seg[c.b * p.Sq + qp] == kseg[i];
+            if (!keep) pr = 0.f;
+          }
+          pt[e] = pr;
+        }
+      }
+    if constexpr (DK) {
+      wgmma_wait<0>();  // dP^T of tile t
+      fence_regs<kBQ / 2>(dpt);
+      // dS^T = P^T (dP^T - (Delta - dLSE)[column]) * scale.
+#pragma unroll
+      for (int n = 0; n < kBQ / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float dl = st[kBQ + 8 * n + col0 + j];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * n + 2 * i + j;
+            dpt[e] = pt[e] * (dpt[e] - dl) * p.scale;
+          }
+        }
+    }
+    uint32_t pa[DV ? kBQ / 16 : 1][4], da[DK ? kBQ / 16 : 1][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      if constexpr (DV) a_frag(pt, kk, pa[kk]);
+      if constexpr (DK) a_frag(dpt, kk, da[kk]);
+    }
+    wgmma_fence();
+    if constexpr (DV) {
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+        wgmma_rs<DT>(dv, pa[kk], desc_mnmajor<D>(c.sDO + s * kBQ * DT, kBQ, kk));
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+        wgmma_rs<DT>(dk, da[kk], desc_mnmajor<D>(c.sQ + s * kBQ * DT, kBQ, kk));
+    }
+    wgmma_commit();
+    if (t + 1 < c.n_tiles) issue_sdp(t + 1);
+  }
+  wgmma_wait<0>();
+  if constexpr (DV) fence_regs<DT / 2>(dv);
+  if constexpr (DK) fence_regs<DT / 2>(dk);
+  // The pass's last tile is free too (a next pass's tiles refill it).
+  if (c.n_tiles > 0 && lane == 0) mbar_arrive(c.empty + (base + c.n_tiles - 1) % kStages);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= p.Sk) continue;
+    const size_t off = ((size_t)(c.b * p.Sk + kpos[i]) * p.Hkv + c.hk) * D + col0;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      if constexpr (DK)
+        *reinterpret_cast<uint32_t*>(p.dk + off + 8 * n) =
+            pack_bf16(dk[4 * n + 2 * i], dk[4 * n + 2 * i + 1]);
+      if constexpr (DV)
+        *reinterpret_cast<uint32_t*>(p.dv + off + 8 * n) =
+            pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, Cfg<D>::MIN_CTAS)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap domap,
                               const __grid_constant__ CUtensorMap kmap,
@@ -125,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + s, 32);  // the producer warp's lanes (stats), one with the TMA bytes
+      mbar_init(full + s, 32);          // the producer warp's lanes (stats), one with the TMA bytes
       mbar_init(empty + s, 4);  // one arrival per consumer warp
     }
     mbar_fence_init();
@@ -140,10 +311,11 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
       tma_tile<D>(sK, &kmap, full_kv, kKeys, hk, k0, b);
       tma_tile<D>(sV, &vmap, full_kv, kKeys, hk, k0, b);
     }
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      if (t >= kStages) mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
-      const int row0 = r_begin + t * kBQ;
+    // Tile g of the ring is row tile g % n_tiles of pass g / n_tiles.
+    for (int g = 0; g < C::PASSES * n_tiles; ++g) {
+      const int s = g % kStages;
+      if (g >= kStages) mbar_wait(empty + s, ((g / kStages) & 1) ^ 1);
+      const int row0 = r_begin + g % n_tiles * kBQ;
       float* st = sStat + s * 2 * kBQ;
       for (int r = lane; r < kBQ; r += 32) {
         const int R = row0 + r;
@@ -168,125 +340,13 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
     return;
   }
 
-  // Consumers: thread (warp, lane) holds keys kr and kr + 8 of the block,
-  // kr = 16 warp + lane / 4, and columns 8 n + 2 (lane % 4) + {0, 1}: query
-  // rows of the S^T / dP^T tiles, head-dim columns of dK / dV.
-  const int kr = warp * 16 + lane / 4;
-  const int col0 = 2 * (lane % 4);
-  int kpos[2], kseg[2] = {0, 0};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    kpos[i] = k0 + kr + 8 * i;
-    if (p.q_seg != nullptr && kpos[i] < p.Sk) kseg[i] = p.kv_seg[b * p.Sk + kpos[i]];
-  }
-  const float scale_log2 = p.scale * kLog2e;
-  const long long last_key = (long long)p.k_offset + k0 + kKeys - 1;
-
-  float dk[DT / 2], dv[DT / 2];
-#pragma unroll
-  for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
-  float pt[kBQ / 2], dpt[kBQ / 2];  // S^T then P^T; dP^T then dS^T
-
-  // S^T = K Q_t^T and dP^T = V dO_t^T, issued as two committed groups.
-  auto issue_sdp = [&](int t) {
-    const int s = t % kStages;
-    mbar_wait(full + s, (t / kStages) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < k_steps(D); ++kk)
-      wgmma_ss<kBQ>(pt, desc_kmajor<D>(sK, kKeys, kk), desc_kmajor<D>(sQ + s * kBQ * DT, kBQ, kk), kk > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < k_steps(D); ++kk)
-      wgmma_ss<kBQ>(dpt, desc_kmajor<D>(sV, kKeys, kk), desc_kmajor<D>(sDO + s * kBQ * DT, kBQ, kk), kk > 0);
-    wgmma_commit();
-  };
-
-  // Software pipeline: S^T and dP^T of tile t + 1 are issued right behind
-  // tile t's dV/dK products, so the tensor cores run on while P^T of the
-  // next tile is computed.  At the top of iteration t the groups in flight
-  // are dV/dK of tile t - 1, then S^T and dP^T of tile t.
+  const Block c{sK, sV, sQ, sDO, sStat, full, empty, b, hk, rep, total, k0, r_begin, n_tiles};
   mbar_wait(full_kv, 0);
-  if (n_tiles > 0) issue_sdp(0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    const int row0 = r_begin + t * kBQ;
-    const float* st = sStat + s * 2 * kBQ;
-    wgmma_wait<1>();  // dV/dK of tile t - 1 and S^T of tile t
-    fence_regs<kBQ / 2>(pt);
-    fence_regs<DT / 2>(dv);
-    fence_regs<DT / 2>(dk);
-    if (t > 0 && lane == 0) mbar_arrive(empty + (t - 1) % kStages);
-
-    // P^T = exp(S^T * scale - LSE[column]) on live pairs.
-    const bool masked = k0 + kKeys > p.Sk ||
-                        (p.causal && (long long)p.q_offset + row0 / rep < last_key) ||
-                        p.q_seg != nullptr;
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = 8 * n + col0 + j;
-        const float l2 = st[c];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 4 * n + 2 * i + j;
-          float pr = exp2_ftz(fmaf(pt[e], scale_log2, -l2));
-          if (masked) {
-            const int R = row0 + c, qp = R / rep;
-            bool keep = kpos[i] < p.Sk;
-            if (p.causal) keep = keep && (long long)p.q_offset + qp >= (long long)p.k_offset + kpos[i];
-            if (p.q_seg != nullptr) keep = keep && R < total && p.q_seg[b * p.Sq + qp] == kseg[i];
-            if (!keep) pr = 0.f;
-          }
-          pt[e] = pr;
-        }
-      }
-    wgmma_wait<0>();  // dP^T of tile t
-    fence_regs<kBQ / 2>(dpt);
-    // dS^T = P^T (dP^T - (Delta - dLSE)[column]) * scale.
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float dl = st[kBQ + 8 * n + col0 + j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 4 * n + 2 * i + j;
-          dpt[e] = pt[e] * (dpt[e] - dl) * p.scale;
-        }
-      }
-    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      a_frag(pt, kk, pa[kk]);
-      a_frag(dpt, kk, da[kk]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_rs<DT>(dv, pa[kk], desc_mnmajor<D>(sDO + s * kBQ * DT, kBQ, kk));
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_rs<DT>(dk, da[kk], desc_mnmajor<D>(sQ + s * kBQ * DT, kBQ, kk));
-    wgmma_commit();
-    if (t + 1 < n_tiles) issue_sdp(t + 1);
-  }
-  wgmma_wait<0>();
-  fence_regs<DT / 2>(dv);
-  fence_regs<DT / 2>(dk);
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (kpos[i] >= p.Sk) continue;
-    const size_t off = ((size_t)(b * p.Sk + kpos[i]) * p.Hkv + hk) * D + col0;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(p.dk + off + 8 * n) =
-          pack_bf16(dk[4 * n + 2 * i], dk[4 * n + 2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(p.dv + off + 8 * n) =
-          pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
-    }
+  if constexpr (C::PASSES == 1) {
+    consume<D, kDV | kDK>(p, c, warp, lane, 0);
+  } else {
+    consume<D, kDV>(p, c, warp, lane, 0);
+    consume<D, kDK>(p, c, warp, lane, n_tiles);
   }
 }
 
@@ -331,7 +391,9 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* 
     case 32: return launch<32>(q, k, v, dout, p, s);
     case 40: return launch<40>(q, k, v, dout, p, s);
     case 64: return launch<64>(q, k, v, dout, p, s);
+    case 80: return launch<80>(q, k, v, dout, p, s);
     case 128: return launch<128>(q, k, v, dout, p, s);
+    case 160: return launch<160>(q, k, v, dout, p, s);
     default: return kErrHeadDim;
   }
 }

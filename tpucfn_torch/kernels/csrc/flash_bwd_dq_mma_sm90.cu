@@ -53,16 +53,18 @@
 //    padded by 4 floats, read with 32-bit loads free of bank conflicts;
 //    the key order inside each k-slice of dS K is permuted so that dS's
 //    accumulator registers are its A fragment with no shuffle.
-//  * Registers: dQ's accumulator is 64 a thread at D = 128, beside Q's and
-//    dO's fragments in bf16, so D = 128 walks 32-key tiles (S and dP then
-//    take 16 registers each instead of 32).
+//  * Registers: dQ's accumulator is 64 a thread at D = 128 (80 at 160),
+//    beside Q's and dO's fragments in bf16 (as many again), so D = 128 and
+//    160 walk 32-key tiles (S and dP then take 16 registers each instead
+//    of 32).
 //
-// Head dims 16, 32, 40, 64 and 128.  bf16 reduces over D in 16-column
-// k-steps, so a D = 40 row (five 16-byte chunks) is staged as 48
-// columns, the sixth chunk zero-filled by cp.async, in a 64-column
+// Head dims 16, 32, 40, 64, 80, 128 and 160.  bf16 reduces over D in
+// 16-column k-steps, so a D = 40 row (five 16-byte chunks) is staged as
+// 48 columns, the sixth chunk zero-filled by cp.async, in a 64-column
 // swizzled tile; fp32 (ten chunks a row) reduces in 8-column k-steps,
-// which 40 fills.  Products into D columns run over D / 8 n-tiles and
-// store only those.
+// which 40 fills.  80 and 160 are whole k-steps; their bf16 rows (10 and
+// 20 chunks) are padded by one chunk where the others are swizzled.
+// Products into D columns run over D / 8 n-tiles and store only those.
 //
 // Layout: q, dO, dQ (B, Sq, H, D); k, v (B, Sk, Hkv, D), one dtype (bf16
 // or fp32), contiguous, 16-byte aligned; lse, delta, dlse (B, H, Sq) fp32
@@ -113,10 +115,10 @@ struct Params {
   float scale;
 };
 
-// Keys of one tile: 64, or 32 at D = 128 (registers).
+// Keys of one tile: 64, or 32 at D = 128 and 160 (registers).
 template <int D>
 constexpr int tile_keys() {
-  return D == 128 ? 32 : 64;
+  return D >= 128 ? 32 : 64;
 }
 
 // Shared memory of one CTA: the ring (per slot a K tile, a V tile), fp32's
@@ -130,7 +132,11 @@ struct Cfg {
   // XOR swizzle spans a power of two of 16-byte columns).
   static constexpr int DK = F32 ? D : (D + 15) / 16 * 16;   // columns reduced over
   static constexpr int DS = F32 || D != 40 ? D : 64;        // bf16 columns of a tile row
-  static constexpr int PITCH = F32 ? (D + 4) * 4 : DS * 2;  // bytes of a row
+  // bf16 rows of a power of two of 16-byte columns are XOR-swizzled; the
+  // 10 and 20 of D = 80 and 160 cannot be, so their rows are padded by one
+  // 16-byte column, which puts any 8 consecutive rows on distinct banks.
+  static constexpr bool SWZ = !F32 && (DS / 8 & (DS / 8 - 1)) == 0;
+  static constexpr int PITCH = F32 ? (D + 4) * 4 : SWZ ? DS * 2 : DS * 2 + 16;  // bytes of a row
   static constexpr int QD = D * (int)sizeof(T) / 16;        // 16-byte columns of a row
   static constexpr int QZ = DK * (int)sizeof(T) / 16;       // ... staged (past QD: zeros)
   static constexpr int QN = DS / 8 < 8 ? DS / 8 : 8;        // bf16 swizzle span
@@ -140,11 +146,12 @@ struct Cfg {
   static constexpr int OFF_DO = OFF_Q + (F32 ? kMaxRows * PITCH : 0);
   static constexpr int OFF_SEG = OFF_DO + (F32 ? kMaxRows * PITCH : 0);
   static constexpr int SMEM = OFF_SEG + kSlots * KEYS * 4;
-  // Byte offset of 16-byte column q of row `row` in a tile: fp32 rows are
-  // padded, bf16 rows XOR-swizzled (ldmatrix reads them conflict-free).
+  // Byte offset of 16-byte column q of row `row` in a tile: fp32 rows and
+  // bf16 rows at D = 80 and 160 are padded, the other bf16 rows
+  // XOR-swizzled (ldmatrix reads both conflict-free).
   __device__ static uint32_t at(int row, int q) {
-    if constexpr (F32) return row * PITCH + q * 16;
-    else return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
+    if constexpr (SWZ) return row * PITCH + ((q ^ (row & (QN - 1))) << 4);
+    else return row * PITCH + q * 16;
   }
 };
 
@@ -410,7 +417,9 @@ int dispatch_d(int D, const Params& p, cudaStream_t s) {
     case 32: return launch<T, 32>(p, s);
     case 40: return launch<T, 40>(p, s);
     case 64: return launch<T, 64>(p, s);
+    case 80: return launch<T, 80>(p, s);
     case 128: return launch<T, 128>(p, s);
+    case 160: return launch<T, 160>(p, s);
     default: return kErrHeadDim;
   }
 }

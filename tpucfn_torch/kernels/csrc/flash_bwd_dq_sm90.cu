@@ -42,13 +42,16 @@
 //    ptxas serializes the wgmma pipeline (C7515); a loop that retires
 //    every group within its iteration avoids that, but at D = 64 it needs
 //    148 registers a thread, which leaves two CTAs per SM, and ran slower.
-//  * D = 32 tiles use the 64-byte swizzle; D = 40 runs on zero-padded
-//    64-column tiles (sm90.cuh, tile_cols): S and dP reduce over 48
-//    columns, dQ is accumulated over 64 and 40 are stored.
+//  * D = 32 tiles use the 64-byte swizzle; D = 40, 80 and 160 run on
+//    zero-padded tiles of 64, 128 and 192 columns (sm90.cuh, tile_cols): S
+//    and dP reduce over 48, 80 and 160 columns, dQ is accumulated over the
+//    padded width and D are stored.
 //  * Occupancy is what hides the latencies the serialized pipeline
 //    exposes: at D <= 64 the kernel is held to 128 registers and a 2-stage
-//    ring (50 KB of shared memory) so that three CTAs share an SM; at
-//    D = 128 the dQ accumulator doubles and one CTA runs per SM.
+//    ring (50 KB of shared memory) so that three CTAs share an SM; on
+//    tiles of 128 columns (D = 80, 128) the dQ accumulator doubles and one
+//    CTA runs per SM, on 192 columns (D = 160) it is 96 registers a thread
+//    beside 80 of S, dP and dS, in a 144 KB ring.
 //  * Masks are computed only for tiles where one can apply (the ragged Sk
 //    edge, the diagonal under causality, segment ids).  A row that sees
 //    nothing (the forward wrote LSE = -1e30) or lies past Sq carries
@@ -83,6 +86,7 @@ template <int D>
 struct Cfg {
   static constexpr int DT = tile_cols(D);   // columns of a shared-memory tile
   static constexpr int TILE = 64 * DT * 2;  // bytes of one 64 x DT bf16 tile
+  static constexpr int MIN_CTAS = DT >= 128 ? 1 : 3;  // CTAs an SM holds (registers)
   static constexpr int OFF_DO = TILE;
   static constexpr int OFF_K = 2 * TILE;  // every tile starts 1024-aligned
   static constexpr int OFF_V = OFF_K + kStages * TILE;
@@ -103,7 +107,7 @@ struct Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, Cfg<D>::MIN_CTAS)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap domap,
                              const __grid_constant__ CUtensorMap kmap,
@@ -333,7 +337,9 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* d
     case 32: return launch<32>(q, k, v, dout, p, s);
     case 40: return launch<40>(q, k, v, dout, p, s);
     case 64: return launch<64>(q, k, v, dout, p, s);
+    case 80: return launch<80>(q, k, v, dout, p, s);
     case 128: return launch<128>(q, k, v, dout, p, s);
+    case 160: return launch<160>(q, k, v, dout, p, s);
     default: return kErrHeadDim;
   }
 }

@@ -28,9 +28,13 @@
 //    shape), then K and V tiles into a 3-stage ring guarded by full/empty
 //    mbarriers, so the next tiles land while this one computes.  Tiles
 //    stay bf16 in shared memory, in the 128-byte (64-byte at D = 32,
-//    32-byte at D = 16) swizzle that the wgmma descriptors name.  D = 40
-//    runs on a zero-padded 64-column tile (sm90.cuh, tile_cols): Q K^T
-//    reduces over 48 columns, P V produces 64, and 40 are stored.
+//    32-byte at D = 16) swizzle that the wgmma descriptors name.  D = 40,
+//    80 and 160 run on zero-padded tiles of 64, 128 and 192 columns
+//    (sm90.cuh, tile_cols): Q K^T reduces over 48, 80 and 160 columns, P V
+//    produces the padded width, and D are stored.
+//  * Keys per K/V tile: 128 for tiles up to 64 columns, 64 for 128 and
+//    192 (shared memory: at 192 columns the Q tile and three stages of K
+//    and V take 168 KB, so one CTA runs per SM there).
 //  * Software pipeline: S of tile t + 1 is issued just before P V of tile
 //    t, so the softmax of t + 1 runs while P V of t is on the tensor cores;
 //    O is rescaled once P V has landed.  A stage is freed one softmax
@@ -41,7 +45,8 @@
 //  * Masks are computed only for tiles where one can apply: the ragged Sk
 //    edge, tiles past the block's first row under causality, and tiles
 //    with segment ids.  Full tiles skip the compares.
-//  * Two CTAs share an SM, so one's softmax overlaps the other's products.
+//  * Two CTAs share an SM up to 128 columns, so one's softmax overlaps the
+//    other's products.
 //
 // Numerics.  Q K^T takes exact bf16 inputs with fp32 accumulation; P is
 // rounded to bf16 as the operand of P V (as FlashAttention-2 and -3 do,
@@ -67,7 +72,8 @@ constexpr int kThreads = 160;  // warps 0-3 consume, warp 4 produces
 template <int D>
 struct Cfg {
   static constexpr int DT = tile_cols(D);  // columns of a shared-memory tile
-  static constexpr int BK = D == 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int BK = DT >= 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int MIN_CTAS = DT > 128 ? 1 : 2;  // CTAs an SM holds (shared memory)
   static constexpr int Q_BYTES = kRows * DT * 2;
   static constexpr int KV_BYTES = BK * DT * 2;
   static constexpr int OFF_K = Q_BYTES;  // every tile starts 1024-aligned
@@ -87,7 +93,7 @@ struct Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Cfg<D>::MIN_CTAS)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, const Params p) {
@@ -328,7 +334,9 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
     case 32: return launch<32>(q, k, v, p, s);
     case 40: return launch<40>(q, k, v, p, s);
     case 64: return launch<64>(q, k, v, p, s);
+    case 80: return launch<80>(q, k, v, p, s);
     case 128: return launch<128>(q, k, v, p, s);
+    case 160: return launch<160>(q, k, v, p, s);
     default: return kErrHeadDim;
   }
 }

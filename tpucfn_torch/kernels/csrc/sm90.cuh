@@ -9,13 +9,15 @@
 //
 // Shared-memory tiles.  A tile of R rows x D bf16 values is loaded by TMA
 // with the swizzle that its row width allows: a D = 64 row is 128 bytes,
-// one 128-byte swizzle atom wide (SW128); a D = 128 tile is loaded as two
-// 64-column halves, each an SW128 block of R x 64, one after the other; a
-// D = 32 row is 64 bytes (SW64) and a D = 16 row 32 bytes (SW32).  A
-// D = 40 row (80 bytes) fits no swizzle span: it is loaded as a 64-column
-// SW128 box over a tensor map whose innermost extent is 40, so TMA fills
-// columns 40-63 with zeros and the products see a zero-padded D = 64 tile
-// (tile_cols); the reduction over D stops at 48 columns (k_steps), and
+// one 128-byte swizzle atom wide (SW128); wider tiles are loaded as
+// 64-column blocks, each an SW128 block of R x 64, one after the other
+// (two at D = 128); a D = 32 row is 64 bytes (SW64) and a D = 16 row 32
+// bytes (SW32).  A head dim above 32 that is not a multiple of 64 (40, 80,
+// 160) is padded to the next one (tile_cols: 64, 128, 192): its last box
+// lies partly past a tensor map whose innermost extent is D, so TMA fills
+// the columns past D with zeros and the products see a zero-padded tile;
+// the reduction over D stops at the first 16-column slice past D
+// (k_steps: 48 of 64 at D = 40, exactly 80 and 160 at the others), and
 // the kernels store only the D real columns of each output row, which in
 // global memory is the next head's start.  Every tile starts on a
 // 1024-byte boundary, so the swizzle pattern that TMA writes is the one
@@ -77,10 +79,12 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// Columns of a shared-memory tile: D, or 64 for D = 40 (zero-padded).
-__host__ __device__ constexpr int tile_cols(int D) { return D == 40 ? 64 : D; }
+// Columns of a shared-memory tile: D up to 32, else D rounded up to whole
+// 64-column SW128 boxes (40 -> 64, 80 -> 128, 160 -> 192; zero-padded).
+__host__ __device__ constexpr int tile_cols(int D) { return D <= 32 ? D : (D + 63) / 64 * 64; }
 // 16-wide K slices of a product that reduces over D: the columns past D
-// are zero, so the padded tile's last 16 are skipped (40 -> 48).
+// are zero, so the padded tile's 16-column slices past D are skipped
+// (40 -> 48 of 64; 80 and 160 reduce over exactly D).
 __host__ __device__ constexpr int k_steps(int D) { return (D + 15) / 16; }
 // Width in bf16 of one TMA box row, and its swizzle: 64 (SW128) for tiles
 // of 64 columns or more, else the tile's width (32: SW64, 16: SW32).
@@ -93,7 +97,8 @@ __host__ __device__ constexpr int pitch_bytes(int D) { return box_cols(D) * 2; }
 // first (D, Hn, S, B), box (box_cols(D), heads, rows, 1): a box of `heads`
 // adjacent heads at `rows` positions lands as rows * heads tile rows,
 // position-major, which is the GQA row packing.  Out-of-range positions
-// (and at D = 40 the box's columns past 40) are filled with zeros.
+// (and at D = 40, 80 and 160 the last box's columns past D) are filled
+// with zeros.
 inline int make_map(CUtensorMap* map, const void* base, int B, int S, int Hn, int D, int heads,
                     int rows) {
   EncodeTiled enc = encoder();
@@ -174,7 +179,8 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 }
 
 // Loads an R x tile_cols(D) tile (R = heads * rows) at coordinates (head,
-// pos, b): one box, or two 64-column halves for D = 128.
+// pos, b): one box, or one 64-column box per block for tiles of 128 and
+// 192 columns.
 template <int D>
 __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int R, int head, int pos, int b) {
@@ -295,6 +301,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 192, fp32) += A(64 x 16) * B(16 x 192); A bf16 in registers (the
+// accumulator layout of a previous product), B bf16 in shared memory,
+// MN-major: the products into a 192-column tile (D = 160, padded).
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
@@ -304,11 +322,13 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs: N is 16, 32, 64 or 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 192,
+                "wgmma_rs: N is 16, 32, 64, 128 or 192");
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // ---- device: cp.async, ldmatrix, mma.sync ------------------------------------

@@ -28,12 +28,14 @@ and bound with ``ctypes`` (:mod:`tpucfn_torch.kernels._build`):
   :func:`flash_bwd` runs the three.
 
 Head dims (``VARIANT_HEAD_DIMS``): ``sm90``, ``mma`` and Delta are built
-for 16, 32, 40, 64 and 128; ``decode`` and the old FMA kernels for 16,
-64 and 128, so a bf16 call of at most 16 rows at D = 32 or 40 runs
-``mma``.  D = 32 tiles take the 64-byte swizzle; D = 40 runs on
-zero-padded tiles (64 columns in ``sm90``, 48 in bf16 ``mma``) and stores
-only its 40 columns.  A head dim no variant takes raises, naming the
-variant.
+for 16, 32, 40, 64, 80, 128 and 160 (every head dim of a model of the JAX
+package); ``decode`` and the old FMA kernels for 16, 64 and 128, so a
+bf16 call of at most 16 rows at D = 32, 40, 80 or 160 runs ``mma``.
+D = 32 tiles take the 64-byte swizzle; D = 40, 80 and 160 run ``sm90`` on
+zero-padded tiles of whole 64-column boxes (64, 128 and 192 columns), and
+D = 40 bf16 ``mma`` on 48 columns; each stores only its D columns.  At
+D = 160 K3 ``sm90`` splits dV and dK over two consumer warpgroups.  A
+head dim no variant takes raises, naming the variant.
 
 The older FMA kernels of K1, K2 and K3 (``csrc/flash_fwd.cu``, and
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` in ``csrc/flash_bwd.cu``) are
@@ -71,11 +73,11 @@ Block sizes of K1's old fma kernel: ``block_q`` rows per CTA — a row is one
 ``block_k`` keys per KV tile.  Explicit arguments, then
 ``TPUCFN_FLASH_BLOCK_Q``/``_K``, then 64/64.  The JAX package's tuned
 table holds TPU measurements and is not carried over.  The sm90 forward
-tiles 64 rows by 128 keys (64 at D = 128) and the backward kernels 64 x
-64, fixed in their sources; the decode variant's key chunks come from
-:func:`_decode_chunks`, K1 mma's tiles and chunks from
-:func:`_mma_fwd_plan`; K2 mma takes 64 keys a tile (32 at D = 128) and
-K3 mma 16 keys a CTA, fixed in their sources.
+tiles 64 rows by 128 keys (64 at D = 80, 128 and 160) and the backward
+kernels 64 x 64, fixed in their sources; the decode variant's key chunks
+come from :func:`_decode_chunks`, K1 mma's tiles and chunks from
+:func:`_mma_fwd_plan`; K2 mma takes 64 keys a tile (32 at D = 128 and
+160) and K3 mma 16 keys a CTA, fixed in their sources.
 Padding to a block is never materialized: the kernels mask the ragged
 edge themselves.
 """
@@ -94,15 +96,17 @@ from tpucfn_torch.ops.attention import (NEG_INF, _repeat_kv,
 SUBLANES = 8  # blocks are multiples of this (the JAX package's rule)
 DEFAULT_BLOCK = 64
 # Head dims each kernel variant is built for: 16 (tiny), 32 (the tiny
-# UNet's middle block), 40 (the SD-1.5 UNet's 64x64 stage), 64 (1B) and
-# 128 (8B) on the tensor-core variants and Delta; the decode variant and
-# the old fma kernels keep 16, 64 and 128.
-VARIANT_HEAD_DIMS = {"sm90": (16, 32, 40, 64, 128), "mma": (16, 32, 40, 64, 128),
+# UNet's middle block), 40, 80 and 160 (the SD-1.5 UNet's 64x64, 32x32 and
+# 16x16 stages and middle block), 64 (1B) and 128 (8B) on the tensor-core
+# variants and Delta; the decode variant and the old fma kernels keep 16,
+# 64 and 128.
+VARIANT_HEAD_DIMS = {"sm90": (16, 32, 40, 64, 80, 128, 160),
+                     "mma": (16, 32, 40, 64, 80, 128, 160),
                      "decode": (16, 64, 128), "fma": (16, 64, 128)}
 # The head dims every call can run at: each variant that a call of such a
 # head dim can reach takes it, and Delta is built for each (the
 # dispatcher reads this).
-HEAD_DIMS = (16, 32, 40, 64, 128)
+HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160)
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
 MAX_SPLITS = 16  # split-KV CTAs per (q-block, head, row); the combine takes <= 32
@@ -195,8 +199,8 @@ def _decode_chunks(sk: int) -> tuple[int, int]:
 
 def _mma_keys(dtype: torch.dtype, d: int) -> int:
     """Keys of one K/V tile of K1's mma variant (the kernel's
-    ``tile_keys``): 64, or 32 for fp32 at D = 128."""
-    return 32 if dtype == torch.float32 and d == 128 else 64
+    ``tile_keys``): 64, or 32 for fp32 at D = 128 and 160."""
+    return 32 if dtype == torch.float32 and d >= 128 else 64
 
 
 def _mma_fwd_plan(dtype: torch.dtype, b: int, sq: int, h: int, hkv: int,
@@ -243,7 +247,8 @@ def fwd_variant(dtype: torch.dtype, sq: int, h: int, hkv: int,
     a tile as a box of 64 / group positions x group heads).  "mma"
     (mma.sync, any row count and group; 3xTF32 in fp32) otherwise: fp32,
     bf16 at 17-63 rows (a verify pass), groups that do not divide 64, and
-    at most 16 rows at a head dim the decode variant lacks (32, 40)."""
+    at most 16 rows at a head dim the decode variant lacks (32, 40, 80,
+    160)."""
     rep = h // hkv
     if dtype != torch.bfloat16:
         return "mma"

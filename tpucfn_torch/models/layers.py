@@ -110,14 +110,19 @@ def bind_state_dict(model: nn.Module, params, *, device=None,
     dict: tensors already on ``device`` in their storage dtype are used
     as they are, not copied, so several models can share one set of
     weights and a training loss can build its model over the trainer's
-    parameters in each call.  Frozen unless ``trainable``; then
-    ``nn.Parameter`` values stay the very objects passed, so their
-    gradients land where the caller looks, and a tensor computed from
-    other tensors (a LoRA-merged weight) is bound as it is, so the
-    gradient flows on into what it was computed from."""
+    parameters in each call.  Frozen unless ``trainable``: the model then
+    holds detached views of the tensors (their storage, not their
+    objects), so freezing it leaves the caller's ``requires_grad`` flags
+    as they were.  With ``trainable``, ``nn.Parameter`` values stay the
+    very objects passed, so their gradients land where the caller looks,
+    and a tensor computed from other tensors (a LoRA-merged weight) is
+    bound as it is, so the gradient flows on into what it was computed
+    from."""
     want = model.state_dict()
     given = {name: params[name].to(device=device, dtype=want[name].dtype)
              for name in want}
+    if not trainable:
+        given = {name: t.detach() for name, t in given.items()}
     model.load_state_dict(given, strict=True, assign=True)
     if not trainable:
         return model.requires_grad_(False)

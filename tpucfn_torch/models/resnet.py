@@ -306,9 +306,7 @@ def resnet_train_fns(cfg: ResNetConfig, *, label_smoothing: float = 0.0,
         return params, {"batch_stats": stats}
 
     def run(params, mstate, batch, train):
-        # Bound trainable in eval too: a frozen bind turns off
-        # requires_grad on the trainer's own parameters.
-        model = ResNet.from_state_dict(cfg, params, trainable=True,
+        model = ResNet.from_state_dict(cfg, params, trainable=train,
                                        stats_group=stats_group)
         logits, stats = model(batch["image"], mstate["batch_stats"],
                               train=train)

@@ -27,9 +27,9 @@ carries the JAX package's parameters across.
 
 Every attention goes through
 :func:`tpucfn_torch.kernels.auto.full_attention_auto`: on the card the
-flash kernels take the head dims they are built for (the 64x64 stage's
-40, both the 4096 x 4096 self-attention and the 4096 x 77
-cross-attention), and the 32x32 and 16x16 stages (80 and 160) run dense.
+flash kernels take every one, self- and cross-attention, at each stage's
+head dim (40 at 64x64, 80 at 32x32, 160 at 16x16 and in the middle
+block).
 """
 
 from __future__ import annotations
