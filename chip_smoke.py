@@ -305,6 +305,35 @@ Phases, each printed as one JSON line:
    full; the backward's ``mm`` count (a ``TorchDispatchMode``) equal
    under dots, dots_no_batch and none, and larger under full.  Printed:
    step time and peaks per policy, a profiled step under full and dots.
+24. ``rl_anakin``: the RL plane (``tpucfn_torch.rl``) on the card, no
+   flash kernel launched in the whole phase.  In this process: the bandit
+   at ``rl train``'s defaults (8 envs, unroll 16, hidden 64) for 60
+   iterations, twice with one seed (rows bit-identical, every one finite)
+   and once with another (rows differ); the reference's learning gate (lr
+   5e-2, 40 updates, the mean edge over the uniform policy of the last 10
+   above the first 10's by 0.05 and above 0.1); a bandit and a gridworld
+   rollout under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync in acting), and the actors' params unchanged by the learner step
+   after it.  Then the chaos drill of the reference (``tests/
+   test_rl_e2e.py``): ``create-stack --accelerator h100-1``, ``launch
+   --ft --ft-restart-budget 1 --chaos`` (host 0 killed at fleet iteration
+   12) over ``python -m tpucfn_torch.cli rl train --env gridworld
+   --unroll 8 --iters 30 --ckpt-every 5 --iter-sleep-s 0.05`` in
+   subprocesses.  Gates: rc 0, the kill fired, exactly one unplanned gang
+   restart, two pids in the rows, ``rl_run_start`` and an ``rl_resumed``
+   from a save at a multiple of 5 (>= 5), rows 1-30 bit-equal to an
+   uninterrupted ``rl train`` run in this process, ``obs goodput`` with
+   ``act``, ``learn`` and ``refresh`` > 0 and the buckets summing to
+   wall within 5%.  Printed: the median ``act``, ``learn`` and
+   ``refresh`` ms of the 60-iteration run and its env steps/s.
+25. ``input_native``: the native tpurecord reader
+   (``tpucfn_torch/data/native.py``), built from the checkout with
+   ``g++`` at first use, on 256 ImageNet-shaped records in 4 shards
+   staged as the ResNet-50 example stages them.  Gates: it loads; it and
+   the Python reader give identical records; ``ShardedDataset`` reports
+   the native reader; a flipped byte raises its CRC error and a
+   truncated shard its truncation error.  Printed: both readers'
+   records/s (best of three passes, warm page cache).
 
 The runs whose gates read no checkpoint written in them save none
 (``_SaveOnly`` in this process, ``NO_SAVE_EXAMPLE`` as a subprocess job):
@@ -355,7 +384,7 @@ PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "provision_llama3_1b", "train_unet_sd15", "train_bert_base",
           "train_moe_llama3_1b", "serve_mixtral_8x7b", "lora_llama3_1b",
           "train_resnet50_imagenet", "train_resnet20_cifar",
-          "train_llama3_1b_remat")
+          "train_llama3_1b_remat", "rl_anakin", "input_native")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -2543,13 +2572,10 @@ def _run_example(argv, per_step=None, example="llama3_8b_fsdp"):
     """The port's example (``tpucfn_torch/examples/<example>.py``) through
     its ``main(argv)``; its stdout is kept (and returned) and each
     ``Trainer.step``'s launches are appended to ``per_step``."""
-    import atexit
     import contextlib
     import importlib
     import io
-    import signal
 
-    from tpucfn_torch.obs.flight import FlightRecorder
     from tpucfn_torch.train import trainer as tr
 
     real_step = tr.Trainer.step
@@ -2562,31 +2588,48 @@ def _run_example(argv, per_step=None, example="llama3_8b_fsdp"):
             per_step.append({k: after[k] - before[k] for k in after})
         return out
 
-    # The loop arms its flight ring's dump for the process's exit (atexit
-    # and SIGTERM).  In this process the run ends here, and its run dir is
-    # removed before the exit: the hooks go with the run.
-    real_install = FlightRecorder.install_dump_handlers
-    armed = []
-
-    def install(rec, d, *a, **kw):
-        armed.append((rec, signal.getsignal(signal.SIGTERM)))
-        return real_install(rec, d, *a, **kw)
-
     ex = importlib.import_module(f"tpucfn_torch.examples.{example}")
     out = io.StringIO()
     tr.Trainer.step = counted
-    FlightRecorder.install_dump_handlers = install
     try:
-        with contextlib.redirect_stdout(out):
+        with _flight_hooks_go_with_the_run(), contextlib.redirect_stdout(out):
             rc = ex.main(argv)
     finally:
         tr.Trainer.step = real_step
-        FlightRecorder.install_dump_handlers = real_install
-        for rec, sigterm in armed:
-            atexit.unregister(rec._dump_quietly)
-            signal.signal(signal.SIGTERM, sigterm)
     assert rc == 0, out.getvalue()[-2000:]
     return out.getvalue()
+
+
+def _flight_hooks_go_with_the_run():
+    """A loop run in this process arms its flight ring's dump for the
+    process's exit (atexit and SIGTERM).  Here the run ends when the
+    block does, and its run dir is removed before the exit: the hooks go
+    with the run."""
+    import atexit
+    import contextlib
+    import signal
+
+    from tpucfn_torch.obs.flight import FlightRecorder
+
+    @contextlib.contextmanager
+    def scope():
+        real_install = FlightRecorder.install_dump_handlers
+        armed = []
+
+        def install(rec, d, *a, **kw):
+            armed.append((rec, signal.getsignal(signal.SIGTERM)))
+            return real_install(rec, d, *a, **kw)
+
+        FlightRecorder.install_dump_handlers = install
+        try:
+            yield
+        finally:
+            FlightRecorder.install_dump_handlers = real_install
+            for rec, sigterm in armed:
+                atexit.unregister(rec._dump_quietly)
+                signal.signal(signal.SIGTERM, sigterm)
+
+    return scope()
 
 
 def _exit_after_last_beat(ev, beats):
@@ -5426,6 +5469,336 @@ KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 
 
+# ---- phase 24 --------------------------------------------------------------
+# rl train's defaults (bandit, 8 envs, unroll 16, hidden 64), RL_ITERS
+# iterations a run.
+RL_ITERS = 60
+# The reference's learning gate (tests/test_rl.py): lr 5e-2, 40 updates,
+# the mean edge over the uniform policy of the last 10 above the first
+# 10's by 0.05, and above 0.1.
+RL_GATE_LR, RL_GATE_ITERS = 5e-2, 40
+# The chaos drill (tests/test_rl_e2e.py): gridworld, unroll 8, 30
+# iterations, a save every 5, 0.05 s of host sleep an iteration, host 0
+# killed once the fleet step reaches 12 (the view trails the rank by up
+# to a beat and a poll: 0.25 s beats put the kill a few iterations later,
+# mid-interval and well before 30).
+RL_DRILL_ITERS, RL_DRILL_CKPT_EVERY, RL_DRILL_KILL_AT = 30, 5, 12
+RL_DRILL_JOB = ["--env", "gridworld", "--unroll", "8", "--iters",
+                str(RL_DRILL_ITERS), "--ckpt-every", str(RL_DRILL_CKPT_EVERY),
+                "--iter-sleep-s", "0.05", "--log-every", "1000"]
+RL_DRILL_HEARTBEAT_S = 0.25
+RL_ROW_KEYS = ("loss", "reward_mean", "entropy", "pushed", "popped")
+
+
+def _rl_rows(run_dir):
+    """rl-host000.jsonl by iteration, a resumed re-run winning."""
+    return {r["iter"]: r for r in _jsonl(Path(run_dir) / "rl-host000.jsonl")}
+
+
+def _rl_phase_ms(run_dir):
+    """Median act / learn / refresh span (ms) of a run, iteration 1 (the
+    warmup, charged to compile) left out."""
+    from tpucfn_torch.obs.trace import read_trace_dir
+
+    spans = {}
+    for e in read_trace_dir(Path(run_dir) / "trace"):
+        if e.get("trace_id", 0) > 1:
+            spans.setdefault(e["name"], []).append(e["dur_s"] * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in spans.items()
+            if k in ("act", "learn", "refresh")}
+
+
+def _rl_in_process(torch, root, out):
+    """The loop, actor and learner in this process on the card."""
+    from tpucfn_torch.rl import (Actor, RLConfig, RLLearner, make_env,
+                                 run_rl_loop)
+    from tpucfn_torch.rl.loop import fold_in
+
+    def cfg(name, **kw):
+        return RLConfig(run_dir=str(root / name), fresh=True,
+                        log_every=1000, **{"iters": RL_ITERS,
+                                           "ckpt_every": RL_ITERS, **kw})
+
+    # 1. rl train's defaults, twice with one seed, once with another
+    seconds = out["seconds_by_part"] = {}
+    for name, kw in (("a", {}), ("b", {}), ("c", {"seed": 1, "iters": 5})):
+        t0 = time.perf_counter()
+        run_rl_loop(cfg(name, **kw))
+        seconds[f"run_{name}"] = time.perf_counter() - t0
+    a, b, c = _rl_rows(root / "a"), _rl_rows(root / "b"), _rl_rows(root / "c")
+    assert sorted(a) == list(range(1, RL_ITERS + 1)), sorted(a)
+    assert all(math.isfinite(r[k]) for r in a.values()
+               for k in ("loss", "reward_mean", "entropy")), a
+    out["same_seed_identical"] = all(
+        a[i][k] == b[i][k] for i in a for k in RL_ROW_KEYS)
+    out["other_seed_differs"] = any(
+        a[i][k] != c[i][k] for i in c for k in ("loss", "reward_mean"))
+    assert out["same_seed_identical"] and out["other_seed_differs"]
+    ms = _rl_phase_ms(root / "a")
+    env_steps = 8 * 16
+    out["bandit"] = {
+        "first_loss": a[1]["loss"], "last_loss": a[RL_ITERS]["loss"],
+        "last_reward_mean": a[RL_ITERS]["reward_mean"],
+        "act_ms": ms["act"], "learn_ms": ms["learn"],
+        "refresh_ms": ms["refresh"],
+        "env_steps_per_s": env_steps / (ms["act"] / 1e3)}
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    # 2. the reference's learning gate
+    t0 = time.perf_counter()
+    env = make_env("bandit", num_envs=8)
+    learner = RLLearner(None, env, lr=RL_GATE_LR)
+    actor = Actor(env, learner.apply_fn, unroll=16)
+    state = learner.init(0)
+    es, obs = actor.reset(gen(1))
+    edge = []
+    for it in range(RL_GATE_ITERS):
+        params = learner.refresh(state)
+        es, obs, traj = actor.rollout(params, es, obs, gen(fold_in(7, it)))
+        baseline = float(traj["obs"].mean())
+        state, metrics = learner.step(state, traj)
+        edge.append(float(metrics["reward_mean"]) - baseline)
+    first, last = _mean(edge[:10]), _mean(edge[-10:])
+    out["learning_gate"] = {"edge_first10": first, "edge_last10": last}
+    assert last > first + 0.05 and last > 0.1, (first, last)
+
+    # 3. a rollout of each env with every host sync an error, and the
+    # actors' params unchanged by a learner step
+    seconds["learning_gate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in ("bandit", "gridworld"):
+        env = make_env(name, num_envs=8)
+        learner = RLLearner(None, env)
+        actor = Actor(env, learner.apply_fn, unroll=16)
+        state = learner.init(0)
+        params = learner.refresh(state)
+        es, obs = actor.reset(gen(1))
+        g = gen(2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, traj = actor.rollout(params, es, obs, g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        before = {k: v.clone() for k, v in params.items()}
+        state, _ = learner.step(state, traj)
+        torch.cuda.synchronize()
+        assert all(torch.equal(before[k], params[k]) for k in params), name
+        assert not all(torch.equal(before[k], state.params[k])
+                       for k in params), name
+    out["rollout_host_syncs"] = 0
+    seconds["sync_checks"] = time.perf_counter() - t0
+
+
+def _rl_drill(root, out):
+    """create-stack, then launch --ft --chaos (kill at iteration 12) of rl
+    train on the card in subprocesses, against an uninterrupted rl train
+    in this process."""
+    import os
+    import signal
+
+    from tpucfn_torch.ft import replay_journal
+
+    state, name = root / "state", "rl"
+    run_dir = state / "clusters" / name
+    ft_dir = run_dir / "ft"
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    cli = [sys.executable, "-m", "tpucfn_torch.cli", "--state-dir",
+           str(state)]
+    seconds = out["seconds_by_part"]
+    # the cluster on the fake control plane (the CLI in this process: a
+    # process of its own would spend its time importing torch)
+    rc, text = _cli_main(["--state-dir", str(state), "create-stack",
+                          "--name", name, "--accelerator", "h100-1"])
+    assert rc == 0 and f"CREATE_COMPLETE {name}" in text, (rc, text)
+    spec = root / "chaos.json"
+    spec.write_text(json.dumps({"seed": 0, "events": [
+        {"action": "kill", "at_step": RL_DRILL_KILL_AT, "host": 0}]}))
+    log_out, log_err = root / "launch.out", root / "launch.err"
+    t0, wall0 = time.perf_counter(), time.time()
+    with open(log_out, "w") as fo, open(log_err, "w") as fe:
+        proc = subprocess.Popen(
+            cli + ["launch", "--name", name, "--ft",
+                   "--ft-restart-budget", "1",
+                   "--ft-heartbeat-interval", str(RL_DRILL_HEARTBEAT_S),
+                   "--ft-backoff", "0",
+                   "--ft-startup-grace", str(FT_STARTUP_GRACE_S),
+                   "--chaos", str(spec), "--", sys.executable, "-m",
+                   "tpucfn_torch.cli", "rl", "train", *RL_DRILL_JOB,
+                   "--run-dir", str(run_dir)],
+            env=env, cwd=HERE, stdout=fo, stderr=fe, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                # the coordinator and the ranks it spawned: one group
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds["launch"] = time.perf_counter() - t0
+    stdout = log_out.read_text()
+    if rc != 0 or "launch finished rc=0" not in stdout:
+        print(log_err.read_text()[-6000:], file=sys.stderr)
+    assert rc == 0 and "launch finished rc=0" in stdout, (rc, stdout[-3000:])
+
+    ev = _jsonl(ft_dir / "events.jsonl")
+    kinds = [e["kind"] for e in ev]
+    fired = [r for r in replay_journal(ft_dir / "journal" / "journal.jsonl")[1]
+             if r["kind"] == "chaos_fired"]
+    decides = [e for e in ev if e["kind"] == "decide"]
+    # each event's second from the launch's start
+    out["events"] = [(e["kind"], round(e["ts"] - wall0, 3)) for e in ev]
+    out["kill_fired_s"] = [round(f["ts"] - wall0, 3) for f in fired]
+    # each incarnation's goodput window: its loop's start
+    out["windows_s"] = [
+        round(w["t"] - wall0, 3)
+        for w in _jsonl(run_dir / "goodput" / "goodput-host000.jsonl")
+        if w.get("kind") == "window"]
+    assert [f["action"] for f in fired] == ["kill"], fired
+    assert [(d["action"], d["planned"]) for d in decides] == [
+        ("gang_restart", False)], decides
+    assert "rl_run_start" in kinds, kinds
+    resumed = next(e for e in ev if e["kind"] == "rl_resumed")
+    out["resumed_from"] = resumed["ckpt_step"]
+    assert (resumed["ckpt_step"] >= RL_DRILL_CKPT_EVERY
+            and resumed["ckpt_step"] % RL_DRILL_CKPT_EVERY == 0
+            and resumed["iteration"] == resumed["ckpt_step"]), resumed
+    rows = _rl_rows(run_dir)
+    out["pids"] = len({r["pid"] for r in rows.values()})
+    assert out["pids"] == 2, out["pids"]
+
+    # the uninterrupted run, in this process
+    t0 = time.perf_counter()
+    rc, text = _cli_main(["rl", "train", *RL_DRILL_JOB, "--run-dir",
+                          str(root / "whole")])
+    assert rc == 0, text[-2000:]
+    seconds["uninterrupted"] = time.perf_counter() - t0
+    ref = _rl_rows(root / "whole")
+    steps = list(range(1, RL_DRILL_ITERS + 1))
+    assert sorted(rows) == sorted(ref) == steps, (sorted(rows), sorted(ref))
+    diff = [i for i in steps for k in RL_ROW_KEYS
+            if rows[i][k] != ref[i][k]]
+    out["rows_equal_uninterrupted"] = not diff
+    assert not diff, (diff, rows[diff[0]], ref[diff[0]])
+
+    report = _goodput_report(run_dir)
+    b = report["buckets"]
+    out["goodput"] = {"wall_s": report["wall_s"],
+                      "sum_over_wall": sum(b.values()) / report["wall_s"],
+                      **{k: b[k] for k in ("act", "learn", "refresh",
+                                           "compile", "ckpt",
+                                           "restart_downtime", "idle")}}
+    for k in ("act", "learn", "refresh"):
+        assert b[k] > 0, (k, b)
+
+
+def phase_rl_anakin(results):
+    """The RL plane on the card: the bandit at rl train's defaults, the
+    learning gate, a rollout with every host sync an error, the refresh
+    across a learner step, same-seed identity, and the chaos drill under
+    launch --ft; no flash kernel launched."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = Path(tempfile.mkdtemp(prefix="rl_anakin-"))
+    out = {"card": results.get("card")}
+    try:
+        _zero_launch_counts()
+        with _flight_hooks_go_with_the_run():
+            _rl_in_process(torch, root, out)
+            _rl_drill(root, out)
+        launches = _launch_counts()
+        out["flash_launches"] = sum(launches.values())
+        assert not any(launches.values()), launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---- phase 25 --------------------------------------------------------------
+# ImageNet-shaped records (224 x 224 x 3 uint8 and a label) through the
+# ResNet-50 example's staging.
+INPUT_N, INPUT_SHARDS = 256, 4
+
+
+def phase_input_native(results):
+    """The native tpurecord reader, built from the checkout with g++, on
+    ImageNet-shaped shards: the same records as the Python reader, the
+    dataset on it, its CRC and truncation errors, and both readers'
+    records/s (a warm page cache: the shards were just written)."""
+    import shutil
+    import tempfile
+
+    from tpucfn_torch.data import ShardedDataset, native
+    from tpucfn_torch.data.records import read_record_shard
+    from tpucfn_torch.examples.common import stage_synthetic
+
+    root = Path(tempfile.mkdtemp(prefix="input_native-"))
+    out = {"card": results.get("card"), "records": INPUT_N,
+           "shards": INPUT_SHARDS}
+    try:
+        t0 = time.perf_counter()
+        available = native.native_available()
+        out["load_s"] = time.perf_counter() - t0
+        out["native_available"] = available
+        assert available, native.native_error()
+        paths = stage_synthetic("imagenet", root / "data", n=INPUT_N,
+                                num_shards=INPUT_SHARDS)
+        out["bytes"] = sum(p.stat().st_size for p in paths)
+
+        def records_per_s(read):
+            """Every record read, CRC-checked and handed over (bytes from
+            the Python reader, views over the mapping from the native
+            one); the best of three passes."""
+            best = math.inf
+            for _ in range(3):
+                t = time.perf_counter()
+                n = sum(1 for p in paths for _ in read(p))
+                best = min(best, time.perf_counter() - t)
+            assert n == INPUT_N, n
+            return INPUT_N / best
+
+        out["python_records_per_s"] = records_per_s(read_record_shard)
+        out["native_records_per_s"] = records_per_s(
+            native.read_record_shard_native)
+        for p in paths:
+            py = list(read_record_shard(p))
+            assert [bytes(v) for v in native.read_record_shard_native(p)] \
+                == py and py, p
+        ds = ShardedDataset(paths, batch_size_per_process=32,
+                            process_index=0, process_count=1)
+        batch = next(iter(ds.epoch(0)))
+        out["dataset_reader"] = ds.reader
+        assert ds.reader == "native" and batch["image"].shape == (
+            32, 224, 224, 3), (ds.reader, batch["image"].shape)
+
+        bad = root / "flipped.tpurec"
+        raw = bytearray(paths[0].read_bytes())
+        raw[-3] ^= 0xFF
+        bad.write_bytes(bytes(raw))
+        r = native.NativeShardReader(bad)
+        try:
+            list(r)
+            raise AssertionError("a flipped byte read back without error")
+        except ValueError as e:
+            assert "CRC" in str(e), e
+        finally:
+            r.close()
+        cut = root / "cut.tpurec"
+        cut.write_bytes(paths[0].read_bytes()[:-50])
+        try:
+            native.NativeShardReader(cut)
+            raise AssertionError("a truncated shard opened without error")
+        except ValueError as e:
+            assert "truncated" in str(e), e
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _kernels_line(results):
     """One entry per kernel variant: launches counted on the paths that run
     it (each path counted from 0 on its own), times at its main path's
@@ -5643,7 +6016,9 @@ def main(argv=None) -> int:
            "train_resnet20_cifar":
                lambda: phase_train_resnet20_cifar(results),
            "train_llama3_1b_remat":
-               lambda: phase_train_llama3_1b_remat(results)}
+               lambda: phase_train_llama3_1b_remat(results),
+           "rl_anakin": lambda: phase_rl_anakin(results),
+           "input_native": lambda: phase_input_native(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

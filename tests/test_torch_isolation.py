@@ -51,6 +51,14 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
             ("data/transforms.py", "data/transforms.py"),
             ("data/shapes.py", "data/shapes.py"),
             ("data/recordio.py", "data/recordio.py")]
+# (copy in the port, original in the repo): files that are not Python,
+# equal byte for byte
+VERBATIM_FILES = [("data/csrc/tpurecord.cc", "native/tpurecord.cc")]
+# modules whose imports the scans below must cover (added with the RL
+# plane and the native reader)
+SCANNED = ("rl/__init__.py", "rl/env.py", "rl/replay.py", "rl/learner.py",
+           "rl/actor.py", "rl/loop.py", "data/native.py",
+           "examples/anakin_rl.py")
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)
@@ -181,7 +189,8 @@ COPIED_DEFS = [("data/synthetic.py", "data/synthetic.py", "synthetic_tokens"),
                ("models/hf_convert.py", "models/hf_convert.py",
                 "config_from_hf_mixtral"),
                ("compat/kvstore.py", "compat/kvstore.py", "create"),
-               ("compat/launch_py.py", "compat/launch_py.py", "main")]
+               ("compat/launch_py.py", "compat/launch_py.py", "main"),
+               ("rl/loop.py", "rl/loop.py", "RLObs")]
 # Names a copied definition calls by the port's own name:
 # (copy, definition) -> {name in the JAX package: name in the port}.
 RENAMED_CALLS = {
@@ -259,6 +268,18 @@ def _imported_roots(path: Path):
 def test_no_jax_or_jax_package_import(path):
     bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_new_modules_are_scanned():
+    files = set(_port_files())
+    assert all(PORT / m in files for m in SCANNED), [
+        m for m in SCANNED if PORT / m not in files]
+
+
+@pytest.mark.parametrize("copy,original", VERBATIM_FILES,
+                         ids=[c for c, _ in VERBATIM_FILES])
+def test_copied_file_equals_original(copy, original):
+    assert (PORT / copy).read_bytes() == (REPO / original).read_bytes()
 
 
 def test_every_module_imports_with_jax_unimportable():

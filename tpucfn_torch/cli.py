@@ -50,6 +50,12 @@ unless ``--device cpu`` is given; with ``TPUCFN_COMPILE_CACHE_ADDRS`` or
 fleet cache; with ``--trace-dir`` its obs endpoint takes ``POST
 /profile``.
 
+``rl train`` is ``tpucfn rl train`` (``tpucfn/cli/main.py:cmd_rl_train``):
+one host's RL loop (:mod:`tpucfn_torch.rl`: bandit or gridworld actors,
+an A2C learner, the replay queue on the device), checkpointed and
+resumable, and fan-out ready under ``launch``; on the card unless
+``--device cpu`` is given.
+
 The read side of a run directory, as the reference's: ``obs`` (metrics
 and trace JSONL as one fleet view), ``obs goodput`` (wall clock by
 bucket, with the ft incidents; ``--ledger`` appends a row that ``obs
@@ -1411,6 +1417,35 @@ def cmd_launch(args) -> int:
     return rc
 
 
+def cmd_rl_train(args) -> int:
+    """Run one host's RL loop (``tpucfn_torch.rl``): actors and an
+    A2C learner on one card, trajectories through the replay queue on the
+    device, param refresh as a copy on the device.  Under ``launch`` every
+    rank gets heartbeats (``TPUCFN_FT_DIR``), goodput ledgers with the
+    ``act``/``learn``/``refresh`` buckets and resume from the latest
+    whole-stack checkpoint.  It runs on the card unless ``--device cpu``
+    is given."""
+    from tpucfn_torch.device import resolve_device
+    from tpucfn_torch.examples.common import exit_process
+    from tpucfn_torch.launch import initialize_runtime
+    from tpucfn_torch.rl.loop import RLConfig, run_rl_loop
+
+    initialize_runtime(device=resolve_device(args.device))
+    cfg = RLConfig(
+        run_dir=args.run_dir, env=args.env, num_envs=args.num_envs,
+        unroll=args.unroll, iters=args.iters, hidden=args.hidden,
+        lr=args.lr, gamma=args.gamma, entropy_coef=args.entropy_coef,
+        seed=args.seed, ckpt_every=args.ckpt_every,
+        log_every=args.log_every, queue_capacity=args.queue_capacity,
+        stop_after=args.stop_after, fresh=args.fresh,
+        iter_sleep_s=args.iter_sleep_s, device=args.device)
+    run_rl_loop(cfg)
+    if os.environ.get("TPUCFN_FT_DIR", "").strip():
+        # under the gang coordinator: leave right after the last beat
+        exit_process(0)
+    return 0
+
+
 def cmd_chaos_proxy(args) -> int:
     """Run the network fault-injection proxy standalone (ISSUE 15):
     ``tpucfn chaos proxy --listen P --upstream H:P --spec faults.json``
@@ -2133,6 +2168,58 @@ def _add_cluster_parsers(sub) -> None:
         "stats", help="query a running artifact server's stats")
     cct.add_argument("--addr", required=True, metavar="HOST:PORT")
     cct.set_defaults(fn=cmd_compilecache_stats)
+
+    rl = sub.add_parser(
+        "rl", help="RL plane (Podracer: actors + learner on one card, "
+                   "replay queue on the device, whole-stack resume)")
+    rlsub = rl.add_subparsers(dest="rl_command", required=True)
+    rt = rlsub.add_parser(
+        "train",
+        help="run one host's actor/learner/refresh loop (fan out with "
+             "`launch -- python -m tpucfn_torch.cli rl train ...`)")
+    rt.add_argument("--run-dir", default="/tmp/tpucfn-rl",
+                    help="per-run state: ckpt/, rl-host*.jsonl rows")
+    rt.add_argument("--env", choices=["bandit", "gridworld"],
+                    default="bandit",
+                    help="built-in vectorized env (every env copy stepped "
+                         "at once on the device)")
+    rt.add_argument("--num-envs", type=int, default=8,
+                    help="vectorized env copies = learner batch size "
+                         "(split across data-parallel ranks when they "
+                         "divide it)")
+    rt.add_argument("--unroll", type=int, default=16,
+                    help="env steps per rollout slab")
+    rt.add_argument("--iters", type=int, default=100,
+                    help="act→learn→refresh iterations to run")
+    rt.add_argument("--hidden", type=int, default=64,
+                    help="policy/value MLP hidden width")
+    rt.add_argument("--lr", type=float, default=1e-2)
+    rt.add_argument("--gamma", type=float, default=0.99)
+    rt.add_argument("--entropy-coef", type=float, default=0.01)
+    rt.add_argument("--seed", type=int, default=0,
+                    help="root seed; every random draw comes from a "
+                         "generator seeded from (seed, iteration), so same "
+                         "seed = bit-identical run, including across "
+                         "restores")
+    rt.add_argument("--ckpt-every", type=int, default=25,
+                    help="whole-stack snapshot interval (learner state + "
+                         "env state + queue ring + iteration)")
+    rt.add_argument("--log-every", type=int, default=10)
+    rt.add_argument("--queue-capacity", type=int, default=4,
+                    help="replay ring slots on the device (host spill is "
+                         "the overflow fallback)")
+    rt.add_argument("--stop-after", type=int, default=0,
+                    help="halt after this iteration (0 = run to --iters); "
+                         "the planned-interruption hook drills use")
+    rt.add_argument("--fresh", action="store_true",
+                    help="ignore existing checkpoints (default: resume "
+                         "from latest)")
+    rt.add_argument("--iter-sleep-s", type=float, default=0.0,
+                    help="host-side pacing between iterations (chaos "
+                         "drills use it to land mid-episode kills)")
+    rt.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the card (default) or the CPU")
+    rt.set_defaults(fn=cmd_rl_train)
 
     ch = sub.add_parser(
         "chaos",

@@ -4,9 +4,11 @@
 :class:`ShardedDataset` is the JAX package's class with two changes:
 the process index and count default to the process group's rank and
 world size (:mod:`tpucfn_torch.launch`) instead of ``jax.process_index()``
-and ``jax.process_count()``, and shards are read by the pure-Python
-reader (the native reader and ``TPUCFN_INPUT_DEVICE_SHARDED`` are not
-ported; ROADMAP A6).  The same seed gives the same batches as the JAX
+and ``jax.process_count()``, and it records the reader it used in
+``reader``: ``"native"`` (:mod:`tpucfn_torch.data.native`, chosen whenever
+its library loads, as the JAX package chooses it) or ``"python"`` (the
+fallback without a toolchain).  ``TPUCFN_INPUT_DEVICE_SHARDED`` is not
+ported (ROADMAP A6).  The same seed gives the same batches as the JAX
 package's, process by process.
 
 :class:`MultiProcessLoader` (decode across spawn worker processes, what
@@ -110,6 +112,18 @@ class ShardedDataset:
         self._pool = None
         self._cache: list[dict[str, np.ndarray]] | None = None
         self._len: int | None = None
+        # "native" or "python" once shards have been read
+        self.reader: str | None = None
+
+    def _read_fn(self):
+        """The shard reader: the native one whenever it loads."""
+        from tpucfn_torch.data import native
+
+        if native.native_available():
+            self.reader = "native"
+            return native.read_record_shard_native
+        self.reader = "python"
+        return records.read_record_shard
 
     def _executor(self):
         if self._pool is None:
@@ -122,7 +136,7 @@ class ShardedDataset:
 
     def _load(self) -> list[dict[str, np.ndarray]]:
         if self._cache is None:
-            read = records.read_record_shard
+            read = self._read_fn()
             out = []
             for p in self.local_shards:
                 out.extend(records.decode_example(b) for b in read(p))
@@ -186,7 +200,7 @@ class ShardedDataset:
         """Constant-memory epoch: shuffled shard order + reservoir
         shuffle over ``shuffle_buffer`` decoded examples (≈ one shard's
         worth) instead of the whole dataset in RAM."""
-        read = records.read_record_shard
+        read = self._read_fn()
         rs = np.random.RandomState((self.seed, epoch, self.pi))
         shard_order = list(self.local_shards)
         if self.shuffle:

@@ -19,6 +19,10 @@ back into ``state`` in place.
   weight_decay 1e-4; PyTorch's own default decay is 0.01).  The learning
   rate is a float or a schedule of the update count, read before each
   update, so the first update runs at ``schedule(0)``.
+* :func:`adam` — optax's ``adam``: AdamW's update with no weight decay
+  (b1 0.9, b2 0.999, eps 1e-8 outside the square root, ``eps_root`` 0,
+  both moments bias-corrected), which is what ``torch.optim.AdamW`` at
+  ``weight_decay=0`` computes; its state is named as AdamW's.
 * :func:`sgd` — optax's ``sgd(learning_rate, momentum, nesterov)``: the
   trace t = g + momentum * t from zeros, the update t (or g + momentum * t
   with ``nesterov``) times the learning rate.  ``torch.optim.SGD`` with
@@ -153,6 +157,11 @@ class _AdamW:
 def adamw(learning_rate: float | Schedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4) -> _AdamW:
     return _AdamW(learning_rate, b1, b2, eps, weight_decay)
+
+
+def adam(learning_rate: float | Schedule, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> _AdamW:
+    return _AdamW(learning_rate, b1, b2, eps, 0.0)
 
 
 class _SGD:
