@@ -334,6 +334,25 @@ Phases, each printed as one JSON line:
    the native reader; a flipped byte raises its CRC error and a
    truncated shard its truncation error.  Printed: both readers'
    records/s (best of three passes, warm page cache).
+26. ``ring_llama3_1b``: ring attention (``tpucfn_torch.kernels.
+   ring_attention``) at llama3-1b's attention shape (32 heads, 8 KV heads,
+   D = 64, one row).  One card holds no two NCCL ranks, so the ring runs
+   in this process: the port's hop loop (``ring_hops``) for each of W
+   virtual ranks, handed at each step the K/V block the neighbour
+   exchange would bring; autograd takes the gradients back to the
+   blocks.  Cases, forward and backward: S = 32768 over 8 ranks (4096 a
+   block), bf16, against one full-sequence ``flash_attention_with_lse``
+   call; S = 8192 over 4 in fp32 (``mma``) and in bf16 (``sm90``), and
+   non-causal in bf16, each against the same ring with dense hops.
+   Gates: out, dQ, dK and dV within ``BWD_REL_TOL`` of each reference's
+   largest magnitude; K1, K2, K3 and Delta launched exactly W(W+1)/2
+   times by a causal ring (36 at W = 8: future blocks launch nothing)
+   and W^2 by a non-causal one, all on the dtype's variant.  Printed:
+   each ring's time beside the full call's (CUDA events around a call,
+   and the kernels' device time of a profiled call).
+   Then K1, Delta, K2 and K3 at the diagonal hop's shape (causal, 4096
+   queries over 4096 keys) and a past hop's (non-causal, with dLSE),
+   each against its plain version, rows beside the kernel phases'.
 
 The runs whose gates read no checkpoint written in them save none
 (``_SaveOnly`` in this process, ``NO_SAVE_EXAMPLE`` as a subprocess job):
@@ -384,7 +403,8 @@ PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "provision_llama3_1b", "train_unet_sd15", "train_bert_base",
           "train_moe_llama3_1b", "serve_mixtral_8x7b", "lora_llama3_1b",
           "train_resnet50_imagenet", "train_resnet20_cifar",
-          "train_llama3_1b_remat", "rl_anakin", "input_native")
+          "train_llama3_1b_remat", "rl_anakin", "input_native",
+          "ring_llama3_1b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -5799,6 +5819,156 @@ def phase_input_native(results):
     return out
 
 
+# ---- phase 26 --------------------------------------------------------------
+# llama3-1b's attention (32 heads, 8 KV heads, D = 64), one row.  Each case:
+# (label, S, W virtual ranks, dtype, causal, held against).
+RING_HEADS = dict(h=32, hkv=8, d=64)
+RING_CASES = (("ring_vs_full", 32768, 8, "bfloat16", True, "full"),
+              ("ring_flash_vs_dense_fp32", 8192, 4, "float32", True,
+               "dense"),
+              ("ring_flash_vs_dense_bf16", 8192, 4, "bfloat16", True,
+               "dense"),
+              ("ring_noncausal", 8192, 4, "bfloat16", False, "dense"))
+RING_VARIANT = {"bfloat16": "sm90", "float32": "mma"}
+
+
+def _virtual_ring(torch, q, k, v, w, causal, hop_attention):
+    """The port's ring over ``w`` virtual ranks in this process: rank i
+    runs ``ring_hops`` (the hop loop of ``ring_attention``) on its Q block,
+    handed at step t the K/V block of rank (i - t) % w, the one the
+    neighbour exchange would have brought it; autograd takes each hop's
+    gradients back to the blocks.  Returns the whole (B, S, H, D)."""
+    from tpucfn_torch.kernels import ring_hops
+
+    s = q.shape[1] // w
+
+    def blk(t, j):
+        return t[:, j * s:(j + 1) * s]
+
+    return torch.cat([ring_hops(
+        blk(q, i), lambda step, i=i: (blk(k, (i - step) % w),
+                                      blk(v, (i - step) % w)),
+        size=w, index=i, causal=causal, hop_attention=hop_attention)
+        for i in range(w)], dim=1)
+
+
+def _ring_case(torch, timer, label, s, w, dtype, causal, against):
+    """One ring, forward and backward: its K1/K2/K3/Delta launches counted
+    from 0 and gated exactly; out, dQ, dK, dV held against one
+    full-sequence ``flash_attention_with_lse`` call or the same ring with
+    dense hops, each tensor within ``BWD_REL_TOL`` of its reference's
+    largest magnitude; the ring's time beside the full call's: CUDA
+    events around a call (host gaps included) and the kernels' device
+    time of a profiled call."""
+    from tpucfn_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(len(label))
+    h, hkv, d = RING_HEADS["h"], RING_HEADS["hkv"], RING_HEADS["d"]
+    q = torch.randn(1, s, h, d, generator=g, device="cuda").to(dt)
+    k = torch.randn(1, s, hkv, d, generator=g, device="cuda").to(dt)
+    v = torch.randn(1, s, hkv, d, generator=g, device="cuda").to(dt)
+    do = torch.randn(1, s, h, d, generator=g, device="cuda").to(dt)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd(fn):
+        out = fn()
+        return [out.detach(), *torch.autograd.grad(out, (q, k, v), do)]
+
+    def ring():
+        return _virtual_ring(torch, q, k, v, w, causal, "flash")
+
+    if against == "full":
+        def reference():
+            return fa.flash_attention_with_lse(q, k, v, causal=causal)[0]
+    else:
+        def reference():
+            return _virtual_ring(torch, q, k, v, w, causal, "dense")
+
+    _zero_launch_counts()
+    got = fwd_bwd(ring)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    hops = w * (w + 1) // 2 if causal else w * w
+    variant = RING_VARIANT[dtype]
+    want = {"k1": hops, "k2": hops, "k3": hops, "delta": hops,
+            f"k1_{variant}": hops, f"k2_{variant}": hops,
+            f"k3_{variant}": hops}
+    counted = {key: launches[key] for key in want}
+    ref = fwd_bwd(reference)
+    torch.cuda.synchronize()
+    ok, worst, tensors = _bwd_errs(dict(zip(
+        ("out", "dq", "dk", "dv"), zip(got, ref))), dt)
+    row = {"case": label, "s": s, "virtual_ranks": w, "s_local": s // w,
+           "dtype": dtype, "causal": causal, "against": against,
+           "launches": launches, "launches_expected": want,
+           "launches_ok": counted == want, "ok": ok, "max_abs_err": worst,
+           "tensors": tensors,
+           "ring": {"events_ms": timer(lambda: fwd_bwd(ring), iters=3,
+                                      warmup=1),
+                    **_profile(torch, lambda: fwd_bwd(ring), 1, "flash_")}}
+    if against == "full":
+        row["full"] = {"events_ms": timer(lambda: fwd_bwd(reference),
+                                          iters=3, warmup=1),
+                       **_profile(torch, lambda: fwd_bwd(reference), 1,
+                                  "flash_")}
+    del got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ring_llama3_1b(results):
+    """Ring attention's numerics on the card at llama3-1b's attention
+    shape: the port's hop loop over W virtual ranks with the exchange
+    replaced (one card holds no two NCCL ranks), its launches gated
+    exactly, held against the full call and the dense ring; then K1 and
+    the backward kernels at the diagonal hop's and a past hop's shape,
+    each against its plain version, rows beside the kernel phases'."""
+    import torch
+
+    timer = Timer(torch)
+    rows = []
+    totals = {}
+    for case in RING_CASES:
+        row = _ring_case(torch, timer, *case)
+        emit({"ring_case": row})
+        rows.append(row)
+        for key, n in row["launches"].items():
+            totals[key] = totals.get(key, 0) + n
+    bad = [r["case"] for r in rows if not (r["ok"] and r["launches_ok"])]
+    if bad:
+        raise AssertionError(f"ring cases off: {bad}")
+    results["ring_launches"] = totals
+
+    bf, hop = torch.bfloat16, dict(b=1, sq=4096, sk=4096, **RING_HEADS)
+    fwd = [_one_case(torch, timer, "ring_diagonal_hop", dtype=bf,
+                     q_offset=[0], causal=True, **hop),
+           _one_case(torch, timer, "ring_past_hop", dtype=bf, q_offset=[0],
+                     causal=False, **hop)]
+    bwd = [_bwd_case(torch, timer, "ring_diagonal_hop", dtype=bf, **hop),
+           _bwd_case(torch, timer, "ring_past_hop", dtype=bf, causal=False,
+                     dlse=True, **hop)]
+    for row in fwd:
+        emit({"kernel_case": row})
+    for row in bwd:
+        emit({"kernel_bwd_case": row})
+    bad = [r["case"] for r in fwd + bwd if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels off at the ring's hop shapes: {bad}")
+    results["kernel_rows"] = results.get("kernel_rows", []) + fwd
+    results["kernel_bwd_rows"] = results.get("kernel_bwd_rows", []) + bwd
+    main = rows[0]
+    return {"card": results.get("card"), "cases": len(rows),
+            "launches": totals,
+            "ring_vs_full_ms": {k: main["ring"][k] for k in (
+                "events_ms", "device_ms")},
+            "full_ms": {k: main["full"][k] for k in ("events_ms",
+                                                     "device_ms")},
+            "worst_rel_err": {r["case"]: max(
+                t["max_abs_err"] / max(t["ref_max_abs"], 1e-30)
+                for t in r["tensors"].values()) for r in rows}}
+
+
 def _kernels_line(results):
     """One entry per kernel variant: launches counted on the paths that run
     it (each path counted from 0 on its own), times at its main path's
@@ -5818,6 +5988,7 @@ def _kernels_line(results):
     moe, moe_tiny = results["moe_launches"], results["moe_tiny_launches"]
     mixtral, lora = results["mixtral_launches"], results["lora_launches"]
     remat = results["remat_launches"]
+    ring = results["ring_launches"]
     from tpucfn_torch.kernels import flash_attention as fa
 
     def head_dims(name):
@@ -5878,7 +6049,8 @@ def _kernels_line(results):
                "train_moe_llama3_1b": moe["k1_sm90"],
                "serve_mixtral_8x7b": mixtral["sm90"],
                "lora_llama3_1b": lora["k1_sm90"],
-               "train_llama3_1b_remat": remat["k1_sm90"]},
+               "train_llama3_1b_remat": remat["k1_sm90"],
+               "ring_llama3_1b": ring["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"],
@@ -5895,7 +6067,8 @@ def _kernels_line(results):
                "serve_tiny_fp32": serve_tiny["flash_fwd_mma"],
                "train_tiny_fp32": tiny["k1_mma"],
                "train_unet_tiny_fp32": unet_tiny["k1_mma"],
-               "train_moe_tiny_fp32": moe_tiny["k1_mma"]},
+               "train_moe_tiny_fp32": moe_tiny["k1_mma"],
+               "ring_llama3_1b": ring["k1_mma"]},
               of(fwd, "mma"), "verify_sq5_serving_offsets"),
         # on no path: timed beside mma in turns
         entry("flash_fwd_fma", "flash_fwd.cu", 98, {},
@@ -5913,7 +6086,8 @@ def _kernels_line(results):
                "train_moe_llama3_1b": moe["delta"],
                "train_moe_tiny_fp32": moe_tiny["delta"],
                "lora_llama3_1b": lora["delta"],
-               "train_llama3_1b_remat": remat["delta"]}, bwd,
+               "train_llama3_1b_remat": remat["delta"],
+               "ring_llama3_1b": ring["delta"]}, bwd,
               "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
@@ -5926,12 +6100,14 @@ def _kernels_line(results):
                "train_unet_sd15": unet["k2_sm90"],
                "train_moe_llama3_1b": moe["k2_sm90"],
                "lora_llama3_1b": lora["k2_sm90"],
-               "train_llama3_1b_remat": remat["k2_sm90"]},
+               "train_llama3_1b_remat": remat["k2_sm90"],
+               "ring_llama3_1b": ring["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
               {"train_tiny_fp32": tiny["k2_mma"],
                "train_unet_tiny_fp32": unet_tiny["k2_mma"],
-               "train_moe_tiny_fp32": moe_tiny["k2_mma"]},
+               "train_moe_tiny_fp32": moe_tiny["k2_mma"],
+               "ring_llama3_1b": ring["k2_mma"]},
               of(bwd, "mma", "dq"), "fp32_d16_gqa2", "dq"),
         # on no path: timed beside mma in turns
         entry("flash_bwd_dq_fma", "flash_bwd.cu", 248, {},
@@ -5946,12 +6122,14 @@ def _kernels_line(results):
                "train_unet_sd15": unet["k3_sm90"],
                "train_moe_llama3_1b": moe["k3_sm90"],
                "lora_llama3_1b": lora["k3_sm90"],
-               "train_llama3_1b_remat": remat["k3_sm90"]},
+               "train_llama3_1b_remat": remat["k3_sm90"],
+               "ring_llama3_1b": ring["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
               {"train_tiny_fp32": tiny["k3_mma"],
                "train_unet_tiny_fp32": unet_tiny["k3_mma"],
-               "train_moe_tiny_fp32": moe_tiny["k3_mma"]},
+               "train_moe_tiny_fp32": moe_tiny["k3_mma"],
+               "ring_llama3_1b": ring["k3_mma"]},
               of(bwd, "mma", "dkv"), "fp32_d16_gqa2", "dkv"),
         # on no path: timed beside mma in turns
         entry("flash_bwd_dkv_fma", "flash_bwd.cu", 308, {},
@@ -6018,7 +6196,8 @@ def main(argv=None) -> int:
            "train_llama3_1b_remat":
                lambda: phase_train_llama3_1b_remat(results),
            "rl_anakin": lambda: phase_rl_anakin(results),
-           "input_native": lambda: phase_input_native(results)}
+           "input_native": lambda: phase_input_native(results),
+           "ring_llama3_1b": lambda: phase_ring_llama3_1b(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

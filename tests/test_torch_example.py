@@ -235,7 +235,8 @@ def test_packed_runs(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--profile-server", "9001"], "B3"),
     (["--fsdp", "2"], "C2"), (["--tensor", "2"], "C2"),
-    (["--context", "2"], "C3"), (["--ring-flash"], "C3"),
+    (["--context", "2", "--pipeline", "2"], "C5"),
+    (["--context", "2", "--packed"], "DP/FSDP/TP only"),
     (["--moe-experts", "4", "--expert", "2"], "C2"),
     (["--pipeline", "2"], "C5")])
 def test_unported_flags_are_refused(flags, item, tmp_path):

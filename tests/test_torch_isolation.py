@@ -55,10 +55,12 @@ VERBATIM = [("serve/kvcache.py", "serve/kvcache.py"),
 # equal byte for byte
 VERBATIM_FILES = [("data/csrc/tpurecord.cc", "native/tpurecord.cc")]
 # modules whose imports the scans below must cover (added with the RL
-# plane and the native reader)
+# plane and the native reader, the collectives and context parallelism)
 SCANNED = ("rl/__init__.py", "rl/env.py", "rl/replay.py", "rl/learner.py",
            "rl/actor.py", "rl/loop.py", "data/native.py",
-           "examples/anakin_rl.py")
+           "examples/anakin_rl.py", "collectives/__init__.py",
+           "collectives/ops.py", "kernels/ring_attention.py",
+           "kernels/ulysses.py")
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)

@@ -122,15 +122,24 @@ def refuse_sharded_parameters(args) -> None:
                              "tpucfn_torch yet (ROADMAP Queue 1 C2)")
 
 
-def per_process_batch(args) -> int:
+def per_process_batch(args, mesh=None) -> int:
+    """``--batch-size`` over the data-parallel ranks: the mesh's batch
+    axes (the ranks of a context group share their rows), else every
+    process."""
     from tpucfn_torch.launch import process_count
 
-    if args.batch_size % process_count():
+    n = process_count()
+    if mesh is not None:
+        from tpucfn_torch.collectives import axis_size
+        from tpucfn_torch.mesh import BATCH_AXES
+
+        n = axis_size(BATCH_AXES, mesh=mesh)
+    if args.batch_size % n:
         raise SystemExit(
             f"--batch-size {args.batch_size} not divisible by "
-            f"{process_count()} processes"
+            f"{n} processes"
         )
-    return args.batch_size // process_count()
+    return args.batch_size // n
 
 
 def stage_synthetic(kind: str, data_dir: Path, *, n: int, num_shards: int,
@@ -408,6 +417,7 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
     from tpucfn_torch.obs.goodput import device_peak_flops
     from tpucfn_torch.obs.metrics import kernel_launch_counts
     from tpucfn_torch.obs.profiler import profile_steps
+    from tpucfn_torch.parallel import shard_batch
     from tpucfn_torch.train.trainer import RestoreFailure
 
     device = trainer.device
@@ -470,6 +480,8 @@ def _train_loop_body(trainer, ds, mesh, args, items_per_step, extra_axes,
                 obs.record_data_wait(
                     step + 1, t0_wait, t_wait,
                     link=pop_link() if pop_link is not None else None)
+                if extra_axes:  # this rank's block of each split dim
+                    batch = shard_batch(mesh, batch, extra_axes)
                 with obs.step(step + 1):
                     state, metrics = trainer.step(state, batch)
                     step = state.step

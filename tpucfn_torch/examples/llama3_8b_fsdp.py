@@ -27,10 +27,16 @@ weights instead (:func:`tpucfn_torch.train.lora.lora_train_fns`): the
 base is frozen in the state's ``model_state``, and only the adapters get
 optimizer state.
 
-Data parallel over the ranks.  Not ported yet, and refused with the
-ROADMAP item named: ``--fsdp`` > 1 and ``--tensor`` > 1 (C2),
-``--moe-experts`` with ``--expert`` > 1 (expert-sharded parameters, C2),
-``--context`` > 1 and ``--ring-flash`` (C3) and ``--pipeline`` > 1 (C5).
+Data parallel over the ranks, and with ``--context N`` context parallel:
+the N ranks of a context group read the same rows (the dataset is split
+over the data-parallel coordinate), each trains on its block of S/N
+positions, and the attention is ring attention over the group
+(``--ring-flash``: every hop on the kernels; else the dense/flash policy
+on the block's length, which on the card is the kernels).  N ranks means
+N cards under NCCL.  Not ported yet, and refused with the ROADMAP item
+named: ``--fsdp`` > 1 and ``--tensor`` > 1 (C2), ``--moe-experts`` with
+``--expert`` > 1 (expert-sharded parameters, C2) and ``--pipeline`` > 1
+(C5); ``--packed`` with ``--context`` > 1 exits as the JAX example does.
 """
 
 from __future__ import annotations
@@ -65,8 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override n_layers (0 = the model preset's depth)")
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--context", type=int, default=1,
-                   help="context (sequence-parallel) axis size; refused > 1")
-    p.add_argument("--ring-flash", action="store_true", help="refused")
+                   help="context (sequence-parallel) axis size; >1 enables "
+                        "ring attention")
+    p.add_argument("--ring-flash", action="store_true",
+                   help="run each ring-attention hop through the flash "
+                        "kernels (K1 forward; Delta, K2, K3 backward)")
     p.add_argument("--pipeline", type=int, default=1,
                    help="pipeline stages; refused > 1")
     p.add_argument("--moe-experts", type=int, default=0,
@@ -102,14 +111,15 @@ def refuse_unported_options(args) -> None:
         (args.moe_experts > 0 and args.expert > 1,
          "--moe-experts with --expert > 1 (expert-sharded parameters)",
          "C2"),
-        (args.context > 1, "--context > 1 (ring attention)", "C3"),
-        (args.ring_flash, "--ring-flash (ring attention)", "C3"),
         (args.pipeline > 1, "--pipeline > 1 (pipeline parallelism)", "C5"),
     )
     for asked, what, item in refused:
         if asked:
             raise SystemExit(f"{what} is not ported to tpucfn_torch yet "
                              f"(ROADMAP Queue 1 {item})")
+    if args.packed and args.context > 1:
+        raise SystemExit("--packed composes with DP/FSDP/TP only "
+                         "(segment ids don't thread through PP/SP yet)")
 
 
 def model_config(args):
@@ -142,17 +152,24 @@ def example_chain(total: int):
         b1=0.9, b2=0.95, weight_decay=0.1))
 
 
-def make_loss_fn(cfg, args, moe_route_group=None):
+def make_loss_fn(cfg, args, moe_route_group=None, mesh=None):
     """The example's loss (:func:`tpucfn_torch.train.llama_loss`): the
     packed loss over segment-masked attention with ``--packed``, else the
     chunked CE (``--ce-chunk``), else the CE over full logits; z-loss on
     each, and the MoE aux loss with ``--moe-experts`` (routed over
-    ``moe_route_group``'s global batch when given).  aux is
-    ``{"accuracy": ...}`` (and the MoE dropped fraction)."""
+    ``moe_route_group``'s global batch when given).  With ``--context``
+    > 1 it runs this rank's block of positions with ring attention over
+    ``mesh``'s context axis.  aux is ``{"accuracy": ...}`` (and the MoE
+    dropped fraction)."""
     from tpucfn_torch.train import llama_loss
 
     model_kw = {} if moe_route_group is None else {
         "moe_route_group": moe_route_group}
+    if args.context > 1:
+        from tpucfn_torch.kernels import make_ring_attention
+
+        model_kw.update(context_mesh=mesh, attention_fn=make_ring_attention(
+            mesh, hop_attention="flash" if args.ring_flash else "auto"))
 
     def loss_fn(params, mstate, batch, generator):
         del generator
@@ -216,10 +233,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     initialize_runtime(device=device)
 
+    from tpucfn_torch.collectives import axis_index, axis_size
     from tpucfn_torch.data import ShardedDataset, packed_loss_weight
-    from tpucfn_torch.mesh import MeshSpec, build_mesh
-    from tpucfn_torch.models.llama import sharding_rules, train_step_flops
-    from tpucfn_torch.train import Trainer
+    from tpucfn_torch.mesh import BATCH_AXES, MeshSpec, build_mesh
+    from tpucfn_torch.models.llama import (causal_lm_loss_weight,
+                                           sharding_rules, train_step_flops)
+    from tpucfn_torch.train import Trainer, TrainerConfig
 
     cfg = model_config(args)
     shards = stage_data(args, cfg, Path(args.run_dir))
@@ -234,7 +253,7 @@ def main(argv=None) -> int:
 
         route_group = dist.group.WORLD
     init_fn = make_init_fn(cfg)
-    loss_fn = make_loss_fn(cfg, args, route_group)
+    loss_fn = make_loss_fn(cfg, args, route_group, mesh)
     rules = sharding_rules(cfg, tensor=args.tensor > 1)
     if args.lora_rank:
         from tpucfn_torch.train import lora_sharding_rules, lora_train_fns
@@ -242,18 +261,33 @@ def main(argv=None) -> int:
         init_fn, loss_fn = lora_train_fns(init_fn, loss_fn,
                                           rank=args.lora_rank)
         rules = lora_sharding_rules()
+    extra_axes = ("context",) if args.context > 1 else ()
+    loss_weight = None
+    if args.packed:
+        loss_weight = packed_loss_weight
+    elif extra_axes:
+        loss_weight = causal_lm_loss_weight(mesh)
     # train_step_flops counts a full finetune's products; a LoRA step
-    # makes no weight gradients of the base, so it leaves MFU unset.
+    # makes no weight gradients of the base, so it leaves MFU unset.  A
+    # rank of a context group counts its share of its rows' whole
+    # sequences.
     trainer = Trainer(
         mesh, rules, loss_fn, example_chain(args.steps or 1000),
         init_fn, device=device,
+        config=TrainerConfig(batch_extra_axes=extra_axes),
         step_flops=None if args.lora_rank else lambda batch: train_step_flops(
-            cfg, *batch["tokens"].shape, chunked_head=chunked),
-        loss_weight=packed_loss_weight if args.packed else None)
-    ds = ShardedDataset(shards, batch_size_per_process=per_process_batch(args),
-                        seed=args.seed)
+            cfg, batch["tokens"].shape[0],
+            batch["tokens"].shape[1] * args.context,
+            chunked_head=chunked) / args.context,
+        loss_weight=loss_weight)
+    # The ranks of a context group read the same rows: the dataset splits
+    # over the data-parallel coordinate.
+    ds = ShardedDataset(shards, batch_size_per_process=per_process_batch(
+        args, mesh), process_index=axis_index(BATCH_AXES, mesh=mesh),
+        process_count=axis_size(BATCH_AXES, mesh=mesh), seed=args.seed)
     run_train_loop(trainer, ds, mesh, args,
-                   items_per_step=args.batch_size * args.seq_len)  # tokens/s
+                   items_per_step=args.batch_size * args.seq_len,  # tokens/s
+                   extra_axes=extra_axes)
     return 0
 
 

@@ -466,14 +466,52 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return per_tok, logits.argmax(-1) == targets
 
 
+def _targets(tokens: torch.Tensor,
+             next_tokens: torch.Tensor | None) -> torch.Tensor:
+    """What each position predicts: ``tokens[:, 1:]``, then
+    ``next_tokens`` (the next block's first token) when given."""
+    targets = tokens[:, 1:]
+    if next_tokens is not None:
+        targets = torch.cat([targets, next_tokens.to(targets.dtype)], 1)
+    return targets.long()
+
+
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
-                   z_loss: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Next-token cross entropy (mean over B, S-1) + optional z-loss.
+                   z_loss: float = 0.0,
+                   next_tokens: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross entropy (mean over the predictions) + optional
+    z-loss.  Over a whole sequence the predictions are B x (S-1).  On a
+    block of a sequence split over the context axis, pass ``next_tokens``
+    (B, 1), the next block's first token
+    (:func:`tpucfn_torch.parallel.next_block_tokens`), on every block but
+    the last: the block's last position predicts it, so a block makes B x
+    S_loc predictions and the last block B x (S_loc - 1); the ranks' means
+    weighted by those counts (:func:`causal_lm_loss_weight`) are the
+    whole sequence's mean.
 
     Returns (loss, accuracy)."""
-    per_tok, hit = token_cross_entropy(logits[:, :-1].float(),
-                                       tokens[:, 1:].long(), z_loss)
+    targets = _targets(tokens, next_tokens)
+    per_tok, hit = token_cross_entropy(
+        logits[:, :targets.shape[1]].float(), targets, z_loss)
     return per_tok.mean(), hit.float().mean()
+
+
+def causal_lm_loss_weight(mesh=None):
+    """The trainer's ``loss_weight`` for :func:`causal_lm_loss` and
+    :func:`chunked_causal_lm_loss` on this rank's batch: its prediction
+    count, B x S_loc, or B x (S_loc - 1) on the context axis's last block
+    (and without a split)."""
+    from tpucfn_torch.parallel.sharding import context_block
+
+    i, n = context_block(mesh)
+    short = int(i == n - 1)
+
+    def weight(batch: dict) -> torch.Tensor:
+        b, s = batch["tokens"].shape[:2]
+        return torch.tensor(b * (s - short))
+
+    return weight
 
 
 def chunked_causal_lm_loss(
@@ -483,16 +521,18 @@ def chunked_causal_lm_loss(
     *,
     chunk_size: int = 512,
     z_loss: float = 0.0,
+    next_tokens: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE + accuracy without the (B, S, V) fp32 logits.
 
     Equal to ``causal_lm_loss(logits(hidden), tokens)`` up to fp32 sum
-    order: a loop over sequence chunks computes each chunk's logits,
-    reduces them to a CE sum and a hit count and drops them; each chunk
-    runs under ``torch.utils.checkpoint``, so the backward recomputes its
-    logits instead of keeping them.  Peak logits memory is (B, chunk, V)."""
-    b, s, _ = hidden.shape
-    n = s - 1
+    order, ``next_tokens`` as there: a loop over sequence chunks computes
+    each chunk's logits, reduces them to a CE sum and a hit count and
+    drops them; each chunk runs under ``torch.utils.checkpoint``, so the
+    backward recomputes its logits instead of keeping them.  Peak logits
+    memory is (B, chunk, V)."""
+    targets = _targets(tokens, next_tokens)
+    b, n = targets.shape
     c = max(1, min(chunk_size, n))
 
     def chunk_sums(w, h_c, t_c):
@@ -501,7 +541,7 @@ def chunked_causal_lm_loss(
         return per_tok.sum(), hit.float().sum()
 
     ce = correct = hidden.new_zeros((), dtype=torch.float32)
-    pred, targets = hidden[:, :-1], tokens[:, 1:].long()
+    pred = hidden[:, :n]
     for i in range(0, n, c):
         ce_c, cor_c = checkpoint(chunk_sums, lm_head_weight,
                                  pred[:, i:i + c], targets[:, i:i + c],

@@ -13,7 +13,10 @@ Placement itself waits: the trainer accepts rules that place no
 parameter on a mesh axis of size > 1 (data parallelism), and refuses the
 rest (FSDP and tensor parallelism, ROADMAP C2); so does
 ``shard_batch_device_layout``.  :func:`shard_batch` puts this process's
-batch rows, which are its shard of the global batch, on its device.
+batch rows, which are its shard of the global batch, on its device, and
+keeps of each dim split over an extra axis (the sequence over ``context``)
+this rank's block; :func:`next_block_tokens` hands a block's last
+position the token it predicts.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Any, Iterable, Mapping
 
 import torch
 
-from tpucfn_torch.mesh import BATCH_AXES, mesh_device, mesh_sizes
+from tpucfn_torch.mesh import (AXIS_CONTEXT, BATCH_AXES, mesh_device,
+                               mesh_sizes)
 
 Spec = tuple
 Rule = tuple[str, Spec]
@@ -96,17 +100,53 @@ def batch_spec(extra_axes: tuple[str | None, ...] = ()) -> Spec:
     return (BATCH_AXES, *extra_axes)
 
 
+def context_block(mesh, axis: str = AXIS_CONTEXT) -> tuple[int, int]:
+    """(this rank's block, the number of blocks) of a sequence split over
+    ``axis``; (0, 1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    n = mesh_sizes(mesh).get(axis, 1)
+    return (mesh.get_local_rank(axis) if n > 1 else 0), n
+
+
 def shard_batch(mesh, batch: Mapping[str, Any],
                 extra_axes: tuple[str | None, ...] = ()) -> dict:
     """Put this process's batch (its rows of the global batch, as
     :class:`tpucfn_torch.data.ShardedDataset` yields them) on its device
-    of ``mesh``.  Sequence axes (``extra_axes`` of size > 1) are not
-    ported (ROADMAP C3)."""
-    sizes = mesh_sizes(mesh)
-    split = [a for a in extra_axes if a is not None and sizes.get(a, 1) > 1]
-    if split:
-        raise NotImplementedError(
-            f"batch axes {split} of size > 1 (sequence parallelism) are "
-            "not ported yet (ROADMAP C3)")
+    of ``mesh``.  Dim ``1 + j`` of every array is split over
+    ``extra_axes[j]`` (None: not split): rank ``i`` of an axis of size
+    ``W`` keeps the block ``[i·L/W, (i+1)·L/W)``, as
+    ``NamedSharding(mesh, batch_spec(extra_axes))`` lays out the global
+    array in the JAX package.  ``("context",)`` is sequence parallelism:
+    each rank its contiguous block of positions."""
     device = mesh_device(mesh)
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    out = {}
+    for key, value in batch.items():
+        t = torch.as_tensor(value)
+        for dim, axis in enumerate(extra_axes, start=1):
+            i, n = (0, 1) if axis is None else context_block(mesh, axis)
+            if n == 1:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(
+                    f"batch {key!r} dim {dim} of length {t.shape[dim]} does "
+                    f"not split over the {n} ranks of mesh axis {axis!r}")
+            block = t.shape[dim] // n
+            t = t.narrow(dim, i * block, block)
+        out[key] = t.contiguous().to(device)
+    return out
+
+
+def next_block_tokens(tokens: torch.Tensor, mesh) -> torch.Tensor | None:
+    """(B, 1): the first token of the next block of the context axis,
+    which this block's last position predicts; None on the axis's last
+    block, and with the axis at 1.  One ``ring_permute`` of (B, 1) over
+    the axis, made by every rank of it."""
+    i, n = context_block(mesh)
+    if n == 1:
+        return None
+    from tpucfn_torch.collectives import ring_permute
+
+    nxt = ring_permute(tokens[:, :1].contiguous(), AXIS_CONTEXT, mesh=mesh,
+                       shift=-1)
+    return None if i == n - 1 else nxt

@@ -20,13 +20,27 @@ so before its global-norm clip), as JAX's mean loss over the sharded
 global batch gives; the returned loss and metrics are averaged the same
 way.  A loss that averages over a count that differs between ranks
 (the packed loss: each rank's valid positions) passes ``loss_weight``,
-that count for a batch: each rank's loss, metrics and gradients are then
-weighted by its share of the group's count (per microbatch under
-``grad_accum``), so the result is the global mean that JAX's loss over
-the whole batch gives.  A rule that
-places a parameter on a mesh axis of size > 1 (FSDP, tensor
-parallelism) is refused (ROADMAP C2), and so is any axis of size > 1
-outside the batch axes (pipeline C5, context C3, tensor C2).  The state
+that count for a batch: each rank's loss is then multiplied by its share
+of the group's count (per microbatch under ``grad_accum``) BEFORE its
+backward, and so are its metrics, so the result is the global mean that
+JAX's loss over the whole batch gives.
+
+Context parallelism (``TrainerConfig(batch_extra_axes=("context",))``
+with a ``context`` axis of size > 1): each rank's batch is its rows'
+block of positions (:func:`tpucfn_torch.parallel.shard_batch`), its loss
+runs the model over that block with ring or Ulysses attention, and the
+group is every rank, data x context.  The attention's backward carries
+each rank's loss into the K/V gradients of every other rank of its
+context group, so a rank's gradient is not its own loss's alone: that is
+why the weights scale the losses before the backward, where a weight on
+the gradients after it would not give the global mean.  Pass
+``loss_weight`` = each rank's own prediction count
+(:func:`tpucfn_torch.models.llama.causal_lm_loss_weight` for the causal
+LM losses, whose last block predicts one token fewer a row); the
+reported loss and metrics are then the global ones, equal on every
+rank.  A rule that places a parameter on a mesh axis of size > 1 (FSDP,
+tensor parallelism) is refused (ROADMAP C2), and so is any other axis of
+size > 1 outside the batch axes (pipeline C5, tensor C2).  The state
 is updated in place, what donation buys in JAX; with
 ``TrainerConfig(donate_state=False)`` a step updates a copy and leaves
 the state it was given unchanged.  Not ported: the compile warm start
@@ -88,6 +102,10 @@ class TrainerConfig:
     # True: a step updates the state's tensors in place (what donation
     # buys in JAX); False: it updates a copy and leaves its input intact.
     donate_state: bool = True
+    # Extra split batch dims after the leading batch axis: ("context",)
+    # when sequence parallelism is on (the batch a rank steps on is its
+    # block of positions).
+    batch_extra_axes: tuple[str | None, ...] = ()
     # Split each batch into this many microbatches along dim 0, run them
     # one after another, and average their grads, losses and aux.
     grad_accum: int = 1
@@ -110,10 +128,11 @@ class Trainer:
         """``step_flops(batch)`` counts one step's FLOPs on this device
         analytically (:meth:`step_cost_flops`); None leaves the MFU gauge
         unset.  ``loss_weight(batch)`` is the count that ``loss_fn``
-        averages over in ``batch``, for data parallelism when it differs
-        between ranks; None: every rank's loss averages over the same
-        count."""
-        from tpucfn_torch.mesh import BATCH_AXES, mesh_device, mesh_sizes
+        averages over in ``batch``, for data and context parallelism when
+        it differs between ranks; None: every rank's loss averages over
+        the same count."""
+        from tpucfn_torch.mesh import (AXIS_CONTEXT, BATCH_AXES,
+                                       mesh_device, mesh_sizes)
 
         if (mesh is None) != (rules is None):
             raise NotImplementedError(
@@ -124,13 +143,16 @@ class Trainer:
         self.world = 1
         if mesh is not None:
             split = {a: n for a, n in mesh_sizes(mesh).items()
-                     if n > 1 and a not in BATCH_AXES}
+                     if n > 1 and a not in BATCH_AXES
+                     and not (a == AXIS_CONTEXT
+                              and a in config.batch_extra_axes)}
             if split:
                 raise NotImplementedError(
                     f"mesh axes {split}: the port's Trainer runs data "
-                    "parallel only; tensor parallelism (ROADMAP C2), "
-                    "context parallelism (C3) and pipelines (C5) are not "
-                    "ported yet")
+                    "parallel only, and context parallel over a batch "
+                    "split with TrainerConfig(batch_extra_axes="
+                    "('context',)); tensor parallelism (ROADMAP C2) and "
+                    "pipelines (C5) are not ported yet")
             self.world = mesh.size()
             if device is None:
                 device = mesh_device(mesh)
@@ -233,8 +255,8 @@ class Trainer:
     def _rank_scales(self, microbatches: list[dict]) -> list[float] | None:
         """Per microbatch, ``world * w / W``: this rank's ``loss_weight``
         ``w`` over the group's total ``W``, times the world size that
-        :meth:`_mean_over_ranks` divides by.  None when no weighting is
-        needed."""
+        :meth:`_mean_over_ranks` divides by; each scales its microbatch's
+        loss before the backward.  None when no weighting is needed."""
         if self.world == 1 or self.loss_weight is None:
             return None
         import torch.distributed as dist
@@ -267,14 +289,13 @@ class Trainer:
         for i, mb in enumerate(microbatches):
             l_i, (aux_i, mstate) = self.loss_fn(state.params, mstate, mb,
                                                 state.generator)
+            aux_i = {k: v.detach() for k, v in aux_i.items()}
+            if scales is not None:
+                l_i = l_i * scales[i]
+                aux_i = {k: v * scales[i] for k, v in aux_i.items()}
             g_i = torch.autograd.grad(l_i, params, allow_unused=True)
             g_i = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(g_i, params)]
-            aux_i = {k: v.detach() for k, v in aux_i.items()}
-            if scales is not None:
-                torch._foreach_mul_(g_i, scales[i])
-                l_i = l_i * scales[i]
-                aux_i = {k: v * scales[i] for k, v in aux_i.items()}
             if grads is None:
                 grads, loss, aux = g_i, l_i.detach(), aux_i
             else:
@@ -565,37 +586,57 @@ class TrainerObs:
 
 def llama_loss(cfg, params, batch, *, attention_fn=None,
                chunk_size: int | None = 512, z_loss: float = 0.0,
-               **model_kw):
+               context_mesh=None, **model_kw):
     """The Llama example's loss over ``params`` (the port's state dict) and
     ``batch``: with ``"segments"`` the packed loss over full logits, else
     with ``chunk_size`` the chunked CE, else the CE over full logits;
     z-loss on each, plus the MoE aux loss when ``cfg.moe`` is set (the JAX
     example adds ``collect_moe_aux`` in each branch).  ``attention_fn``
     None is the model's default (the measured dense/flash policy);
-    ``model_kw`` goes to the model (the MoE routing scope).  Returns
+    ``model_kw`` goes to the model (the MoE routing scope).
+
+    ``context_mesh`` with a ``context`` axis of size > 1: ``batch`` is
+    this rank's block of positions (``shard_batch(mesh, batch,
+    ("context",))``), the model runs it at its global positions (RoPE's
+    ``q_offset``) with ``attention_fn``, ring or Ulysses attention over
+    that axis, and the loss takes the next block's first token
+    (:func:`tpucfn_torch.parallel.next_block_tokens`); the trainer's
+    ``loss_weight`` is then
+    :func:`tpucfn_torch.models.llama.causal_lm_loss_weight`.  Returns
     ``(loss, aux)``, aux ``{"accuracy": ...}`` and, for MoE,
     ``"moe_dropped_frac"`` (the mean over layers)."""
     from tpucfn_torch.data.packing import packed_causal_lm_loss
     from tpucfn_torch.models.llama import (Llama, causal_lm_loss,
                                            chunked_causal_lm_loss)
+    from tpucfn_torch.parallel.sharding import (context_block,
+                                                next_block_tokens)
 
     model = Llama.from_state_dict(cfg, params, attention_fn=attention_fn,
                                   trainable=True, **model_kw)
     tokens, segments = batch["tokens"], batch.get("segments")
+    block, blocks = context_block(context_mesh)
+    if blocks > 1 and (segments is not None or attention_fn is None):
+        raise ValueError("a context-split batch needs ring or Ulysses "
+                         "attention and no segment ids")
+    q_offset = block * tokens.shape[1]
+    next_tokens = next_block_tokens(tokens, context_mesh) if blocks > 1 \
+        else None
     if segments is not None:
         logits, moe_aux, dropped = model(tokens, segment_ids=segments,
                                          return_aux=True)
         loss, acc = packed_causal_lm_loss(logits, tokens, segments,
                                           z_loss=z_loss)
     elif chunk_size:
-        hidden, moe_aux, dropped = model(tokens, return_hidden=True,
-                                         return_aux=True)
+        hidden, moe_aux, dropped = model(tokens, q_offset=q_offset,
+                                         return_hidden=True, return_aux=True)
         loss, acc = chunked_causal_lm_loss(
             hidden, params["lm_head.weight"], tokens,
-            chunk_size=chunk_size, z_loss=z_loss)
+            chunk_size=chunk_size, z_loss=z_loss, next_tokens=next_tokens)
     else:
-        logits, moe_aux, dropped = model(tokens, return_aux=True)
-        loss, acc = causal_lm_loss(logits, tokens, z_loss=z_loss)
+        logits, moe_aux, dropped = model(tokens, q_offset=q_offset,
+                                         return_aux=True)
+        loss, acc = causal_lm_loss(logits, tokens, z_loss=z_loss,
+                                   next_tokens=next_tokens)
     if cfg.moe is None:
         return loss, {"accuracy": acc}
     return loss + moe_aux, {"accuracy": acc,
@@ -603,16 +644,25 @@ def llama_loss(cfg, params, batch, *, attention_fn=None,
 
 
 def llama_train_fns(cfg, *, attention_fn=None, chunk_size: int | None = 512,
-                    z_loss: float = 0.0, **model_kw) -> tuple[InitFn, LossFn]:
+                    z_loss: float = 0.0, context_mesh=None,
+                    **model_kw) -> tuple[InitFn, LossFn]:
     """(init_fn, loss_fn) for a Llama, as the JAX package's Llama example
     wires them.  ``cfg.param_dtype`` should be fp32 (master weights).
     ``attention_fn`` defaults to the flash kernels' Function (K1 forward,
-    K2/K3 backward; the plain versions for CPU tensors).  The loss is
-    :func:`llama_loss` (``model_kw``: the MoE routing scope, e.g.
-    ``moe_route_group`` under data parallelism)."""
+    K2/K3 backward; the plain versions for CPU tensors), or, with a
+    ``context_mesh`` whose context axis is > 1, to ring attention over it
+    with flash hops.  The loss is :func:`llama_loss` (``model_kw``: the
+    MoE routing scope, e.g. ``moe_route_group`` under data
+    parallelism)."""
     from tpucfn_torch.kernels.flash_attention import flash_attention
     from tpucfn_torch.models.llama import init_llama_params
+    from tpucfn_torch.parallel.sharding import context_block
 
+    if attention_fn is None and context_block(context_mesh)[1] > 1:
+        from tpucfn_torch.kernels.ring_attention import make_ring_attention
+
+        attention_fn = make_ring_attention(context_mesh,
+                                           hop_attention="flash")
     attention_fn = attention_fn or flash_attention
 
     def init_fn(generator):
@@ -623,7 +673,7 @@ def llama_train_fns(cfg, *, attention_fn=None, chunk_size: int | None = 512,
         del generator
         loss, aux = llama_loss(cfg, params, batch, attention_fn=attention_fn,
                                chunk_size=chunk_size, z_loss=z_loss,
-                               **model_kw)
+                               context_mesh=context_mesh, **model_kw)
         return loss, (aux, model_state)
 
     return init_fn, loss_fn
