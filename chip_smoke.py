@@ -404,7 +404,7 @@ PHASES = ("device", "build", "kernel", "kernel_bwd", "serve_llama3_1b",
           "train_moe_llama3_1b", "serve_mixtral_8x7b", "lora_llama3_1b",
           "train_resnet50_imagenet", "train_resnet20_cifar",
           "train_llama3_1b_remat", "rl_anakin", "input_native",
-          "ring_llama3_1b")
+          "ring_llama3_1b", "shard_llama3_8b")
 # tpucfn_torch/kernels/csrc/<name>.cu
 SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode_sm90",
            "flash_fwd_mma_sm90", "flash_bwd", "flash_bwd_dq_sm90",
@@ -5969,6 +5969,275 @@ def phase_ring_llama3_1b(results):
                 for t in r["tensors"].values()) for r in rows}}
 
 
+# ---- phase 27 --------------------------------------------------------------
+# Sharded parameters at llama3-8b's width (dim 4096, 32 heads, 8 KV heads,
+# D = 128, FFN 14336, vocab 128256).  (a) One decoder layer at B = 1,
+# S = 2048, bf16, split by the port's rules over T virtual tensor ranks;
+# (b) the Trainer with sharding_rules at a mesh of one, 2 layers, B = 2,
+# S = 2048, against the same Trainer with replicated rules; (c) the
+# kernels at a tensor rank's attention shapes.
+SHARD_TP = (2, 4)
+SHARD_LAYER_ROWS = (1, 2048)
+SHARD_TRAIN = dict(layers=2, b=2, seq=2048, steps=3)
+SHARD_LOSS_REL_TOL = 1e-5  # the same step twice: kernel nondeterminism only
+
+
+def _llama3_8b_width(torch):
+    import dataclasses
+
+    from tpucfn_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              param_dtype=torch.float32, remat=True)
+    assert (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.ffn_dim, cfg.vocab_size) == \
+        (4096, 32, 8, 128, 14336, 128256), cfg
+    return cfg
+
+
+def _tensor_dim(spec):
+    """The dim a spec splits over ``tensor`` (None: not split)."""
+    for dim, entry in enumerate(spec):
+        if entry == "tensor" or (isinstance(entry, tuple)
+                                 and "tensor" in entry):
+            return dim
+    return None
+
+
+def _virtual_tp_layer(torch, cfg, block, x, dy, t):
+    """One decoder layer over ``t`` virtual tensor ranks in this process:
+    each rank's attention and MLP (its heads, its FFN rows, the port's
+    ``TensorSplit`` with no mesh) on its block of the whole layer's
+    weights, split where ``sharding_rules`` puts ``tensor``; the
+    row-parallel partial sums added here in place of the sum over the
+    axis.  Returns the output, the input's gradient and each whole
+    weight's gradient (the ranks' blocks concatenated)."""
+    from tpucfn_torch.kernels.flash_attention import flash_attention
+    from tpucfn_torch.models.layers import CausalSelfAttention, SwiGLUMLP
+    from tpucfn_torch.models.llama import sharding_rules
+    from tpucfn_torch.parallel import TensorSplit, make_partition_spec
+
+    full = dict(block.named_parameters())
+    specs = make_partition_spec(sharding_rules(cfg), full)
+    blocks = {}  # name -> this rank's leaf, per rank
+    ranks = []
+    for i in range(t):
+        split = TensorSplit(t, i)
+        attn = CausalSelfAttention(
+            cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, attention_fn=flash_attention,
+            device="meta", tensor=split)
+        mlp = SwiGLUMLP(cfg.dim, cfg.ffn_dim, cfg.dtype, cfg.param_dtype,
+                        device="meta", tensor=split)
+        for prefix, mod in (("attn", attn), ("mlp", mlp)):
+            for leaf, p in list(mod.named_parameters()):
+                name = f"{prefix}.{leaf}"
+                dim = _tensor_dim(specs[name])
+                w = full[name].detach()
+                if dim is not None:
+                    w = w.chunk(t, dim)[i]
+                w = w.clone().requires_grad_()
+                assert w.shape == p.shape, (name, w.shape, p.shape)
+                owner, _, attr = leaf.rpartition(".")
+                mod.get_submodule(owner)._parameters[attr] = w
+                blocks.setdefault(name, []).append(w)
+        ranks.append((attn, mlp))
+    x = x.detach().requires_grad_()
+    h_in = block.input_norm(x)
+    h = x + sum(attn(h_in) for attn, _ in ranks)
+    m_in = block.post_attn_norm(h)
+    y = h + sum(mlp(m_in) for _, mlp in ranks)
+    norms = ["input_norm.scale", "post_attn_norm.scale"]
+    leaves = [x, *(full[n] for n in norms),
+              *(w for ws in blocks.values() for w in ws)]
+    grads = list(torch.autograd.grad(y, leaves, dy))
+    dx, norm_grads, rest = grads[0], grads[1:3], grads[3:]
+    out = dict(zip(norms, norm_grads))
+    for name, ws in blocks.items():
+        gs, rest = rest[:len(ws)], rest[len(ws):]
+        dim = _tensor_dim(specs[name])
+        out[name] = gs[0] if dim is None else torch.cat(gs, dim)
+    return y.detach(), dx, out
+
+
+def _shard_tp_numerics(torch, cfg):
+    """(a): the layer over T = 2 and 4 virtual ranks against the whole
+    layer, the output and every gradient within ``BWD_REL_TOL`` of the
+    reference's largest magnitude; each split's K1/K2/K3/Delta launches
+    counted from 0 and gated exactly (T of each, on sm90)."""
+    import dataclasses
+
+    from tpucfn_torch.kernels.flash_attention import flash_attention
+    from tpucfn_torch.models.layers import rope_frequencies
+    from tpucfn_torch.models.llama import LlamaBlock, init_llama_params
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    params = init_llama_params(one, generator=torch.Generator(
+        "cuda").manual_seed(19), device="cuda")
+    block = LlamaBlock(one, flash_attention, False, device="cuda")
+    block.load_state_dict({k[len("layers.0."):]: v for k, v in params.items()
+                           if k.startswith("layers.0.")})
+    del params
+    b, s = SHARD_LAYER_ROWS
+    g = torch.Generator("cuda").manual_seed(8)
+    x = torch.randn(b, s, cfg.dim, generator=g, device="cuda").to(cfg.dtype)
+    dy = torch.randn(b, s, cfg.dim, generator=g, device="cuda").to(cfg.dtype)
+    rope = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device="cuda")
+    xr = x.detach().requires_grad_()
+    ref_y = block(xr, rope=rope)[0]
+    names = [n for n, _ in block.named_parameters()]
+    ref = torch.autograd.grad(ref_y, [xr, *block.parameters()], dy)
+    ref = {"out": ref_y.detach(), "dx": ref[0], **dict(zip(names, ref[1:]))}
+    rows, totals = [], {}
+    for t in SHARD_TP:
+        _zero_launch_counts()
+        y, dx, grads = _virtual_tp_layer(torch, cfg, block, x, dy, t)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want = {"k1": t, "k2": t, "k3": t, "delta": t, "k1_sm90": t,
+                "k2_sm90": t, "k3_sm90": t}
+        ok, worst, tensors = _bwd_errs(
+            {"out": (y, ref["out"]), "dx": (dx, ref["dx"]),
+             **{n: (grads[n], ref[n]) for n in names}}, cfg.dtype)
+        row = {"tensor": t, "heads_per_rank": cfg.n_heads // t,
+               "kv_heads_per_rank": cfg.n_kv_heads // t, "rows": [b, s],
+               "ok": ok, "max_abs_err": worst,
+               "worst_rel_err": max(v["max_abs_err"]
+                                    / max(v["ref_max_abs"], 1e-30)
+                                    for v in tensors.values()),
+               "launches": {k: launches[k] for k in want},
+               "launches_expected": want,
+               "launches_ok": all(launches[k] == n
+                                  for k, n in want.items()),
+               "tensors": tensors}
+        emit({"shard_tp_case": row})
+        rows.append(row)
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        del y, dx, grads
+    del block, ref
+    torch.cuda.empty_cache()
+    return rows, totals
+
+
+def _shard_trainer_run(torch, cfg, rules, batch):
+    """(b): the Trainer at llama3-8b's width over ``rules`` on a mesh of
+    one: the losses, the step's wall and device time, the peak memory and
+    the launches of its steps."""
+    from tpucfn_torch.mesh import MeshSpec, build_mesh
+    from tpucfn_torch.train import Trainer, llama_train_fns
+
+    mesh = build_mesh(MeshSpec(), device_type="cuda")
+    init_fn, loss_fn = llama_train_fns(cfg, chunk_size=512, z_loss=1e-4,
+                                       tensor_mesh=mesh)
+    trainer = Trainer(mesh, rules, loss_fn, _example_chain(100), init_fn,
+                      device="cuda")
+    state = trainer.init(0)
+    n_params = sum(p.numel() for p in state.params.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(SHARD_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _profile(torch, lambda: trainer.step(state, batch), 1)
+    specs = trainer.param_spec()
+    del state, trainer
+    torch.cuda.empty_cache()
+    return {"params": n_params, "losses": losses, "step_ms": step_ms,
+            "peak_mem_gib": peak, "launches": launches,
+            "profile_step": profile,
+            "specs_split": sum(1 for v in specs.values()
+                               if any(e is not None for e in v))}
+
+
+def phase_shard_llama3_8b(results):
+    """Sharded parameters at llama3-8b's width on the card: (a) the
+    tensor-parallel layer over virtual ranks, every rank's attention on
+    K1, Delta, K2 and K3; (b) the sharded Trainer at a mesh of one
+    against replicated rules; (c) K1, K2, K3 and Delta at a tensor rank's
+    shapes against their plain versions."""
+    import dataclasses
+
+    import torch
+
+    from tpucfn_torch.models.llama import sharding_rules
+    from tpucfn_torch.parallel import ShardingRules
+
+    cfg = _llama3_8b_width(torch)
+    tp_rows, tp_launches = _shard_tp_numerics(torch, cfg)
+    bad = [r["tensor"] for r in tp_rows
+           if not (r["ok"] and r["launches_ok"])]
+    if bad:
+        raise AssertionError(f"tensor-parallel layer off at T = {bad}")
+    results["shard_tp_launches"] = tp_launches
+
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARD_TRAIN["layers"])
+    batch = _token_batch(torch, SHARD_TRAIN["b"], SHARD_TRAIN["seq"],
+                         cfg.vocab_size)
+    sharded = _shard_trainer_run(torch, cfg2, sharding_rules(cfg2), batch)
+    results["shard_launches"] = sharded["launches"]
+    replicated = _shard_trainer_run(torch, cfg2,
+                                    ShardingRules(((r".*", ()),)), batch)
+    per_step = {k: n * cfg2.n_layers * SHARD_TRAIN["steps"]
+                for k, n in LAUNCHES_PER_LAYER.items()}
+    per_step.update(k1_sm90=per_step["k1"], k2_sm90=per_step["k2"],
+                    k3_sm90=per_step["k3"])
+    counted = {k: sharded["launches"][k] for k in per_step}
+    assert counted == per_step, (counted, per_step)
+    assert sharded["specs_split"] > 0, sharded["specs_split"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"],
+                                              replicated["losses"])]
+    assert all(map(math.isfinite, sharded["losses"])), sharded["losses"]
+    assert max(rel) <= SHARD_LOSS_REL_TOL, (sharded["losses"],
+                                            replicated["losses"])
+
+    timer = Timer(torch)
+    bf = torch.bfloat16
+    fwd, bwd = [], []
+    for t in SHARD_TP:
+        shape = dict(b=2, sq=2048, sk=2048, d=cfg.head_dim,
+                     h=cfg.n_heads // t, hkv=cfg.n_kv_heads // t)
+        label = f"shard_tp{t}_llama3_8b"
+        fwd.append(_one_case(torch, timer, label, dtype=bf,
+                             q_offset=[0, 0], causal=True, **shape))
+        bwd.append(_bwd_case(torch, timer, label, dtype=bf, **shape))
+    for row in fwd:
+        emit({"kernel_case": row})
+    for row in bwd:
+        emit({"kernel_bwd_case": row})
+    bad = [r["case"] for r in fwd + bwd if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels off at the tensor ranks' shapes: {bad}")
+    results["kernel_rows"] = results.get("kernel_rows", []) + fwd
+    results["kernel_bwd_rows"] = results.get("kernel_bwd_rows", []) + bwd
+    keep = ("params", "losses", "step_ms", "peak_mem_gib")
+    return {"card": results.get("card"),
+            "tp": [{k: r[k] for k in (
+                "tensor", "heads_per_rank", "kv_heads_per_rank", "ok",
+                "max_abs_err", "worst_rel_err", "launches")}
+                for r in tp_rows],
+            "trainer_sharded": {**{k: sharded[k] for k in keep},
+                                "device_ms": sharded["profile_step"][
+                                    "device_ms"],
+                                "wall_ms": sharded["profile_step"][
+                                    "wall_ms"]},
+            "trainer_replicated": {**{k: replicated[k] for k in keep},
+                                   "device_ms": replicated[
+                                       "profile_step"]["device_ms"]},
+            "loss_rel_diff_max": max(rel),
+            "launches_per_run": counted,
+            "kernel_rows": {r["case"]: {k: r[k] for k in KEYS}
+                            for r in fwd}}
+
+
 def _kernels_line(results):
     """One entry per kernel variant: launches counted on the paths that run
     it (each path counted from 0 on its own), times at its main path's
@@ -5989,6 +6258,7 @@ def _kernels_line(results):
     mixtral, lora = results["mixtral_launches"], results["lora_launches"]
     remat = results["remat_launches"]
     ring = results["ring_launches"]
+    shard, shard_tp = results["shard_launches"], results["shard_tp_launches"]
     from tpucfn_torch.kernels import flash_attention as fa
 
     def head_dims(name):
@@ -6050,7 +6320,9 @@ def _kernels_line(results):
                "serve_mixtral_8x7b": mixtral["sm90"],
                "lora_llama3_1b": lora["k1_sm90"],
                "train_llama3_1b_remat": remat["k1_sm90"],
-               "ring_llama3_1b": ring["k1_sm90"]},
+               "ring_llama3_1b": ring["k1_sm90"],
+               "shard_llama3_8b": shard["k1_sm90"],
+               "shard_llama3_8b_tp": shard_tp["k1_sm90"]},
               of(fwd, "sm90"), "train_llama3_1b"),
         entry("flash_fwd_decode_sm90", "flash_fwd_decode_sm90.cu", 98,
               {"serve_llama3_1b": serve["flash_fwd_decode_sm90"],
@@ -6087,7 +6359,9 @@ def _kernels_line(results):
                "train_moe_tiny_fp32": moe_tiny["delta"],
                "lora_llama3_1b": lora["delta"],
                "train_llama3_1b_remat": remat["delta"],
-               "ring_llama3_1b": ring["delta"]}, bwd,
+               "ring_llama3_1b": ring["delta"],
+               "shard_llama3_8b": shard["delta"],
+               "shard_llama3_8b_tp": shard_tp["delta"]}, bwd,
               "train_llama3_1b",
               "delta"),
         entry("flash_bwd_dq_sm90", "flash_bwd_dq_sm90.cu", 248,
@@ -6101,7 +6375,9 @@ def _kernels_line(results):
                "train_moe_llama3_1b": moe["k2_sm90"],
                "lora_llama3_1b": lora["k2_sm90"],
                "train_llama3_1b_remat": remat["k2_sm90"],
-               "ring_llama3_1b": ring["k2_sm90"]},
+               "ring_llama3_1b": ring["k2_sm90"],
+               "shard_llama3_8b": shard["k2_sm90"],
+               "shard_llama3_8b_tp": shard_tp["k2_sm90"]},
               of(bwd, "sm90", "dq"), "train_llama3_1b", "dq"),
         entry("flash_bwd_dq_mma_sm90", "flash_bwd_dq_mma_sm90.cu", 248,
               {"train_tiny_fp32": tiny["k2_mma"],
@@ -6123,7 +6399,9 @@ def _kernels_line(results):
                "train_moe_llama3_1b": moe["k3_sm90"],
                "lora_llama3_1b": lora["k3_sm90"],
                "train_llama3_1b_remat": remat["k3_sm90"],
-               "ring_llama3_1b": ring["k3_sm90"]},
+               "ring_llama3_1b": ring["k3_sm90"],
+               "shard_llama3_8b": shard["k3_sm90"],
+               "shard_llama3_8b_tp": shard_tp["k3_sm90"]},
               of(bwd, "sm90", "dkv"), "train_llama3_1b", "dkv"),
         entry("flash_bwd_dkv_mma_sm90", "flash_bwd_dkv_mma_sm90.cu", 308,
               {"train_tiny_fp32": tiny["k3_mma"],
@@ -6197,7 +6475,8 @@ def main(argv=None) -> int:
                lambda: phase_train_llama3_1b_remat(results),
            "rl_anakin": lambda: phase_rl_anakin(results),
            "input_native": lambda: phase_input_native(results),
-           "ring_llama3_1b": lambda: phase_ring_llama3_1b(results)}
+           "ring_llama3_1b": lambda: phase_ring_llama3_1b(results),
+           "shard_llama3_8b": lambda: phase_shard_llama3_8b(results)}
     for name in wanted:
         phase.run(name, fns[name])
         if phase.failed:

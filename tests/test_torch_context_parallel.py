@@ -20,12 +20,13 @@ package's.
   JAX package's whole-sequence values within 1e-6 relative, the last
   block's missing prediction included.
 * The port's example under the launcher's env contract with ``--model
-  tiny --context 2 --ring-flash`` on 2 gloo ranks: each step's loss
-  within 1e-5 relative of ``--context 1`` on one rank (where
+  tiny --context 2 --ring-flash`` on 2 gloo ranks, and with ``--tensor 2
+  --context 2 --ring-flash`` on 4 (the ring over each rank's heads): each
+  step's loss within 1e-5 relative of ``--context 1`` on one rank (where
   ``--ring-flash`` changes nothing).
-* ``--packed --context 2`` exits with the JAX example's text, ``--tensor
-  2`` still names C2, and the Trainer takes a context axis only with
-  ``batch_extra_axes``.
+* ``--packed --context 2`` exits with the JAX example's text, and the
+  Trainer takes a context axis only with ``batch_extra_axes`` (and a
+  tensor axis beside it).
 """
 
 import dataclasses
@@ -259,7 +260,9 @@ def _losses(run_dir):
     return {r["step"]: r["loss"] for r in rows if "loss" in r}
 
 
-def test_example_context_2_equals_context_1(tmp_path):
+def _example_against_one_rank(tmp_path, n, flags):
+    """The example on ``n`` ranks under the launcher's env contract with
+    ``flags``, beside one rank without them; each step's loss held."""
     from tpucfn_torch.bootstrap import EnvContract
 
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -269,33 +272,41 @@ def test_example_context_2_equals_context_1(tmp_path):
                             str(tmp_path / "one")], env=env, cwd=REPO,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True)
-    (tmp_path / "hostfile").write_text("127.0.0.1\n127.0.0.1\n")
+    (tmp_path / "hostfile").write_text("127.0.0.1\n" * n)
     port = free_port()
-    two = []
-    for rank in range(2):
+    ranks = []
+    for rank in range(n):
         rank_env = dict(env, **EnvContract(
-            workers_path=str(tmp_path / "hostfile"), workers_count=2,
+            workers_path=str(tmp_path / "hostfile"), workers_count=n,
             worker_chip_count=1, coordinator=f"127.0.0.1:{port}",
             host_id=rank, storage="", generation=0).to_env())
-        two.append(subprocess.Popen(
-            [sys.executable, *EXAMPLE, "--context", "2", "--run-dir",
-             str(tmp_path / "two")], env=rank_env, cwd=REPO,
+        ranks.append(subprocess.Popen(
+            [sys.executable, *EXAMPLE, *flags, "--run-dir",
+             str(tmp_path / "many")], env=rank_env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for p in (one, *two):
+    for p in (one, *ranks):
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err[-4000:]
-    ref, got = _losses(tmp_path / "one"), _losses(tmp_path / "two")
+    ref, got = _losses(tmp_path / "one"), _losses(tmp_path / "many")
     assert sorted(ref) == sorted(got) == [1, 2, 3, 4]
     np.testing.assert_allclose([got[s] for s in ref], list(ref.values()),
                                rtol=LOSS_RTOL)
 
 
+def test_example_context_2_equals_context_1(tmp_path):
+    _example_against_one_rank(tmp_path, 2, ["--context", "2"])
+
+
+def test_example_tensor_2_context_2_equals_context_1(tmp_path):
+    _example_against_one_rank(tmp_path, 4, ["--tensor", "2", "--context",
+                                            "2"])
+
+
 @pytest.mark.parametrize("flags,text", [
     (["--packed", "--context", "2"],
      "--packed composes with DP/FSDP/TP only (segment ids don't thread "
-     "through PP/SP yet)"),
-    (["--tensor", "2", "--context", "2"], "ROADMAP Queue 1 C2")],
-    ids=["packed", "tensor"])
+     "through PP/SP yet)")],
+    ids=["packed"])
 def test_example_refusals(flags, text, tmp_path):
     from tpucfn_torch.examples import llama3_8b_fsdp as ex
 
@@ -339,9 +350,9 @@ def test_trainer_takes_a_context_axis_only_as_a_batch_split(fake_world):
 
     assert trainer(split, context=4).world == 4
     assert trainer(split, data=2, context=2).world == 4
+    assert trainer(split, context=2, tensor=2).batch_world == 2
     with pytest.raises(NotImplementedError, match="batch_extra_axes"):
         trainer(PortConfig(), context=4)
-    for axis, item in (("tensor", "C2"), ("pipeline", "C5")):
-        with pytest.raises(NotImplementedError, match=item) as e:
-            trainer(split, context=2, **{axis: 2})
-        assert "C3" not in str(e.value)
+    with pytest.raises(NotImplementedError, match="C5") as e:
+        trainer(split, context=2, pipeline=2)
+    assert "C3" not in str(e.value)

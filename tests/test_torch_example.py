@@ -13,6 +13,12 @@
   from step 3`` and its losses for steps 4-6 equal an uninterrupted run's
   exactly.
 * Packed: ``--packed`` runs 3 steps with finite losses.
+* Sharded flags: ``--fsdp 2``, ``--tensor 2``, ``--fsdp 2 --tensor 2``
+  and ``--moe-experts 4 --expert 2`` train under the launcher's env
+  contract over 2 or 4 gloo ranks; the dense runs' losses equal plain
+  data parallelism's over as many batch ranks (which read the same rows)
+  within 1e-5 relative, the expert-parallel run's are finite (each rank
+  routes its own rows, so its capacity is not one rank's).
 * Refusals: each unported flag exits non-zero naming what is missing
   (the input service and the compile cache, refused here before, run
   since: ``tests/test_torch_planes.py``); a step that will not restore
@@ -232,12 +238,76 @@ def test_packed_runs(tmp_path):
     assert (tmp_path / "data" / "corpus.jsonl").exists()
 
 
+SHARDED_STEPS = 3
+SHARDED_RTOL = 1e-5
+
+
+def _run_ranks(run_dir, n, flags):
+    """The example on ``n`` gloo ranks under the launcher's env contract
+    (one process without a contract for ``n`` = 1); its losses."""
+    from test_torch_rank_pool import free_port
+    from tpucfn_torch.bootstrap import EnvContract
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for var in EnvContract.__dataclass_fields__:
+        env.pop(f"TPUCFN_{var.upper()}", None)
+    run_dir.mkdir(parents=True)
+    (run_dir / "hostfile").write_text("127.0.0.1\n" * n)
+    port = free_port()
+    procs = []
+    for rank in range(n):
+        rank_env = env if n == 1 else dict(env, **EnvContract(
+            workers_path=str(run_dir / "hostfile"), workers_count=n,
+            worker_chip_count=1, coordinator=f"127.0.0.1:{port}",
+            host_id=rank, storage="", generation=0).to_env())
+        procs.append(subprocess.Popen(
+            [sys.executable, str(EXAMPLE), "--device", "cpu", *TINY,
+             "--steps", str(SHARDED_STEPS), "--ckpt-every", "100",
+             "--run-dir", str(run_dir / "run"), *flags],
+            env=rank_env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-4000:]
+    return _losses(run_dir / "run")
+
+
+@pytest.fixture(scope="module")
+def data_parallel_losses(tmp_path_factory):
+    """Plain data parallelism's losses over ``n`` ranks, run once each."""
+    runs = {}
+
+    def losses(n):
+        if n not in runs:
+            runs[n] = _run_ranks(tmp_path_factory.mktemp(f"dp{n}") / "r",
+                                 n, [])
+        return runs[n]
+
+    return losses
+
+
+@pytest.mark.parametrize("flags,n,batch_ranks", [
+    (["--fsdp", "2"], 2, 2), (["--tensor", "2"], 2, 1),
+    (["--fsdp", "2", "--tensor", "2"], 4, 2),
+    (["--moe-experts", "4", "--expert", "2"], 2, None)],
+    ids=["fsdp2", "tensor2", "fsdp2_tensor2", "moe_expert2"])
+def test_sharded_flags_train_over_cpu_ranks(flags, n, batch_ranks,
+                                            data_parallel_losses, tmp_path):
+    got = _run_ranks(tmp_path / "r", n, flags)
+    assert sorted(got) == list(range(1, SHARDED_STEPS + 1))
+    assert all(math.isfinite(v) for v in got.values())
+    if batch_ranks is not None:
+        ref = data_parallel_losses(batch_ranks)
+        np.testing.assert_allclose([got[s] for s in sorted(got)],
+                                   [ref[s] for s in sorted(got)],
+                                   rtol=SHARDED_RTOL)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--profile-server", "9001"], "B3"),
-    (["--fsdp", "2"], "C2"), (["--tensor", "2"], "C2"),
     (["--context", "2", "--pipeline", "2"], "C5"),
     (["--context", "2", "--packed"], "DP/FSDP/TP only"),
-    (["--moe-experts", "4", "--expert", "2"], "C2"),
+    (["--lora-rank", "4", "--fsdp", "2"], "C2b"),
     (["--pipeline", "2"], "C5")])
 def test_unported_flags_are_refused(flags, item, tmp_path):
     from tpucfn_torch.examples import llama3_8b_fsdp as ex

@@ -60,7 +60,7 @@ SCANNED = ("rl/__init__.py", "rl/env.py", "rl/replay.py", "rl/learner.py",
            "rl/actor.py", "rl/loop.py", "data/native.py",
            "examples/anakin_rl.py", "collectives/__init__.py",
            "collectives/ops.py", "kernels/ring_attention.py",
-           "kernels/ulysses.py")
+           "kernels/ulysses.py", "parallel/tensor.py")
 METRICS_DEFS = ("nearest_rank", "Counter", "Gauge", "ComputedGauge", "Summary")
 # the port's own versions in obs/metrics.py (process index from the
 # process group, not from JAX)
@@ -249,7 +249,9 @@ COPIED_CONSTANTS = [
 ]
 # Not copies: ``parallel/presets.py``'s ``dense_rules`` and
 # ``transformer_rules`` place the JAX rules' dims on the port's layouts
-# (an ``nn.Linear`` weight is (out, in), a conv kernel (out, in, kh, kw)).
+# (an ``nn.Linear`` weight is (out, in), a conv kernel (out, in, kh, kw)),
+# and its ``zero1_rules`` scopes them to the port's names of the moments
+# (``exp_avg``/``exp_avg_sq``/``momentum_buffer`` for optax's mu/nu/trace).
 
 
 def _port_files():

@@ -7,8 +7,11 @@ package's.
   carried through the weight conversion: the scanned layer axis dropped
   and, for the (in, out) dense kernels that the port stores (out, in),
   reversed.
-* A rule that places a parameter on a mesh axis of size > 1, or a mesh
-  with a non-batch axis of size > 1, is refused.
+* A rule that places a parameter on a mesh axis of size > 1 places its
+  block: the state is born sharded, the moments placed as their
+  parameter, the scalars replicated.  A pipeline axis of size > 1, and a
+  context axis that does not split the batch, are refused; a tensor axis
+  is taken.
 * DP parity: one trainer step (two, in fact) over 2 gloo ranks, each with
   half the batch, equals a 1-rank step on the whole batch: the loss,
   every gradient after the global-norm clip, and the params after the
@@ -112,24 +115,45 @@ def _tiny_fns():
     return cfg, llama_train_fns(cfg, chunk_size=16)
 
 
-def test_a_rule_on_a_split_axis_is_refused(fake_world):
+def test_a_rule_on_a_split_axis_places_blocks(fake_world):
     fake_world(2)
     cfg, (init_fn, loss_fn) = _tiny_fns()
     mesh = build_mesh(MeshSpec(fsdp=2), device_type="cpu")
     trainer = Trainer(mesh, sharding_rules(cfg), loss_fn, adamw(1e-3),
                       init_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        trainer.init(0)
+    state = trainer.init(0)
+    full = init_fn(torch.Generator().manual_seed(0))[0]
+    name = "layers.0.attn.q_proj.weight"  # (tensor, fsdp): in over fsdp
+    assert tuple(state.params[name].shape) == (64, 32)
+    torch.testing.assert_close(state.params[name].detach(),
+                               full[name][:, :32], rtol=0, atol=0)
+    assert tuple(state.params["embed_tokens.weight"].shape) == (256, 32)
+    assert tuple(state.params["final_norm.scale"].shape) == (64,)
+    specs = trainer.param_spec()
+    assert specs[f"params/{name}"] == ("tensor", "fsdp")
+    assert specs[f"opt/exp_avg/{name}"] == ("tensor", "fsdp")
+    assert specs[f"opt/step/{name}"] == ()
+    assert specs["step"] == () and specs["generator"] == (None,)
+    assert trainer.abstract_state()[f"params/{name}"].shape == (64, 64)
+    assert trainer.state_shardings()[f"params/{name}"].splits() == [
+        (1, ("fsdp",))]
+    assert trainer.batch_sharding().spec == (("data", "fsdp", "expert"),)
 
 
 def test_non_batch_axes_are_refused(fake_world):
+    """A pipeline axis (C5) and a context axis that does not split the
+    batch are refused; a tensor axis is taken."""
     fake_world(2)
     cfg, (init_fn, loss_fn) = _tiny_fns()
-    for axis in ("tensor", "context", "pipeline"):
+    for axis, text in (("context", "batch_extra_axes"), ("pipeline", "C5")):
         mesh = build_mesh(MeshSpec(**{axis: 2}), device_type="cpu")
-        with pytest.raises(NotImplementedError, match="data parallel only"):
+        with pytest.raises(NotImplementedError, match=text):
             Trainer(mesh, sharding_rules(cfg, tensor=False), loss_fn,
                     adamw(1e-3), init_fn)
+    mesh = build_mesh(MeshSpec(tensor=2), device_type="cpu")
+    trainer = Trainer(mesh, sharding_rules(cfg), loss_fn, adamw(1e-3),
+                      init_fn)
+    assert (trainer.world, trainer.batch_world) == (2, 1)
 
 
 def test_mesh_and_rules_go_together():

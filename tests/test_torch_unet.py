@@ -315,6 +315,6 @@ def test_example_tiny_on_cpu(tmp_path, no_group):
 def test_example_refuses_sharded_parameters(tmp_path):
     from tpucfn_torch.examples import sd15_unet
 
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 C2"):
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 C2b"):
         sd15_unet.main(["--device", "cpu", "--tiny", "--fsdp", "2",
                         "--run-dir", str(tmp_path)])

@@ -26,11 +26,16 @@ The same semantics as the JAX package's Orbax-backed manager:
 
 Every rank of a data-parallel group holds the same state, so rank 0
 writes the step (through ``FileSystemWriter``) and every rank reads it
-back.  With a ``tracer``
+back.  A state placed by sharding rules with some tensor split over an
+axis of size > 1 (``TrainState.shardings``) is saved by every rank
+together, synchronously: each tensor as a ``DTensor`` of its placement,
+each block written once, the step's directory named by rank 0 and renamed
+into place after the last rank's write.  A restore reads the step into
+whatever layout the live state has (a ``DTensor`` of each split tensor's
+placement, or whole tensors): the restore onto another mesh that
+``Trainer.abstract_state`` is for in the JAX package.  With a ``tracer``
 each finalized save writes a ``ckpt_write`` span (from the call to
 durable, with its bytes) and each restore a ``ckpt_restore`` span.
-Cross-topology re-slicing (restoring onto a differently sharded mesh)
-waits with sharded parameters (ROADMAP C2).
 """
 
 from __future__ import annotations
@@ -56,6 +61,26 @@ _WRITER_THREADS = 1
 
 def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _split(state) -> bool:
+    """Whether any tensor of ``state`` is a block of a split placement."""
+    shardings = getattr(state, "shardings", None) or {}
+    return any(sh.is_split() for sh in shardings.values())
+
+
+def _placed(state) -> dict:
+    """``state.state_dict()`` with every split tensor as a ``DTensor`` of
+    its placement over the live block (no copy)."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for key, t in state.state_dict().items():
+        sh = state.shardings[key]
+        out[key] = DTensor.from_local(t.detach(), sh.mesh, sh.placements(),
+                                      run_check=False) \
+            if sh.is_split() else t
+    return out
 
 
 class CheckpointManager:
@@ -147,6 +172,9 @@ class CheckpointManager:
             return False
         self.wait()
         t0 = time.monotonic()
+        if _split(state):
+            self._save_split(step, state, t0)
+            return True
         if not self.writer:
             return True
         snapshot = self._stage(state)
@@ -202,6 +230,33 @@ class CheckpointManager:
         finally:
             self._pending_step = None
 
+    def _save_split(self, step: int, state, t0: float) -> None:
+        """Every rank's blocks into one step directory, synchronously."""
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        name = [f"{step}{_TMP}{os.getpid()}-{time.time_ns()}"]
+        dist.broadcast_object_list(name, src=0)
+        tmp = self.directory / name[0]
+        try:
+            dcp.save(_placed(state), storage_writer=dcp.FileSystemWriter(
+                tmp, thread_count=_WRITER_THREADS))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        dist.barrier()
+        if self.writer:
+            os.rename(tmp, self.directory / str(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.directory / str(old), ignore_errors=True)
+            if self.tracer is not None:
+                self.tracer.record(
+                    "ckpt_write", start=t0, dur_s=time.monotonic() - t0,
+                    trace_id=step,
+                    bytes=_dir_bytes(self.directory / str(step)),
+                    stage_s=0.0)
+        dist.barrier()  # every rank sees the step once it is final
+
     def _raise_pending_error(self) -> None:
         if self._error is not None:
             e, self._error = self._error, None
@@ -228,14 +283,25 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint found under {self.directory}")
         path = self.directory / str(step)
         t0 = time.monotonic()
-        # Read into host tensors, then copy into the live (device) state.
-        host = {k: torch.empty(v.shape, dtype=v.dtype)
-                for k, v in state.state_dict().items()}
-        try:
-            dcp.load(host, storage_reader=dcp.FileSystemReader(path),
-                     no_dist=True)
-        except CheckpointException as e:  # a BaseException, not an Exception
-            raise OSError(f"reading checkpoint {path} failed") from e
+        if _split(state):
+            # Each rank reads its blocks straight into the live state.
+            placed = _placed(state)
+            try:
+                dcp.load(placed, storage_reader=dcp.FileSystemReader(path))
+            except CheckpointException as e:
+                raise OSError(f"reading checkpoint {path} failed") from e
+            host = {k: v.to_local() if hasattr(v, "to_local") else v
+                    for k, v in placed.items()}
+        else:
+            # Read into host tensors, then copy into the live (device)
+            # state.
+            host = {k: torch.empty(v.shape, dtype=v.dtype)
+                    for k, v in state.state_dict().items()}
+            try:
+                dcp.load(host, storage_reader=dcp.FileSystemReader(path),
+                         no_dist=True)
+            except CheckpointException as e:  # a BaseException
+                raise OSError(f"reading checkpoint {path} failed") from e
         state.load_state_dict(host)
         if self.tracer is not None:
             self.tracer.record("ckpt_restore", start=t0,

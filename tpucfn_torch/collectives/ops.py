@@ -48,6 +48,13 @@ def axis_index(axis: AxisName, *, mesh) -> int:
     return idx
 
 
+def group_of(axis: AxisName, *, mesh):
+    """The process group of ``axis``: the axis's own, or, over a tuple
+    with more than one axis of size > 1, the flattened submesh's (its
+    axes in the mesh's order).  Made collectively on first use."""
+    return _group(axis, mesh)
+
+
 def _group(axis: AxisName, mesh):
     """The process group of ``axis``: the axis's own, or, over a tuple
     with more than one axis of size > 1, the flattened submesh's."""

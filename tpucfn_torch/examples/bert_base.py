@@ -17,7 +17,7 @@ schedule to 1e-4 with weight decay 0.01, ``transformer_rules`` and
 package: no flash kernel runs on this path.
 
 Data parallel over the ranks; ``--fsdp`` > 1 and ``--tensor`` > 1 are
-refused (ROADMAP Queue 1 C2).
+refused (ROADMAP Queue 1 C2b).
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ are cuDNN's.
 Image decoding needs PIL (``--data-url``); the synthetic data does not.
 Data parallel over the ranks, each BatchNorm's statistics over the
 global batch; ``--fsdp`` > 1 and ``--tensor`` > 1 are refused (ROADMAP
-Queue 1 C2).
+Queue 1 C2b).
 """
 
 from __future__ import annotations

@@ -113,13 +113,15 @@ def refuse_unported_planes(args) -> None:
 
 
 def refuse_sharded_parameters(args) -> None:
-    """Exit non-zero, naming ROADMAP Queue 1 C2, for ``--fsdp`` or
-    ``--tensor`` > 1: the trainer runs data parallel only."""
+    """Exit non-zero, naming ROADMAP Queue 1 C2b, for ``--fsdp`` or
+    ``--tensor`` > 1 in an example whose model does not take them yet
+    (every example but the Llama one runs data parallel only)."""
     for flag, n, what in (("--fsdp", args.fsdp, "sharded parameters"),
                           ("--tensor", args.tensor, "tensor parallelism")):
         if n > 1:
             raise SystemExit(f"{flag} > 1 ({what}) is not ported to "
-                             "tpucfn_torch yet (ROADMAP Queue 1 C2)")
+                             "this example of tpucfn_torch yet (ROADMAP "
+                             "Queue 1 C2b)")
 
 
 def per_process_batch(args, mesh=None) -> int:

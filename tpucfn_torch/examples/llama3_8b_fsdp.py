@@ -27,16 +27,23 @@ weights instead (:func:`tpucfn_torch.train.lora.lora_train_fns`): the
 base is frozen in the state's ``model_state``, and only the adapters get
 optimizer state.
 
-Data parallel over the ranks, and with ``--context N`` context parallel:
-the N ranks of a context group read the same rows (the dataset is split
-over the data-parallel coordinate), each trains on its block of S/N
-positions, and the attention is ring attention over the group
-(``--ring-flash``: every hop on the kernels; else the dense/flash policy
-on the block's length, which on the card is the kernels).  N ranks means
-N cards under NCCL.  Not ported yet, and refused with the ROADMAP item
-named: ``--fsdp`` > 1 and ``--tensor`` > 1 (C2), ``--moe-experts`` with
-``--expert`` > 1 (expert-sharded parameters, C2) and ``--pipeline`` > 1
-(C5); ``--packed`` with ``--context`` > 1 exits as the JAX example does.
+The mesh is the JAX example's: ``--fsdp``, ``--tensor``, ``--context``
+and ``--expert`` axes, the ``data`` axis filling the ranks left over, and
+``sharding_rules(cfg, tensor=args.tensor > 1)`` place the state.  Data
+parallel over the batch axes (data, fsdp, expert); ``--fsdp N``: params
+and AdamW moments split over the N ranks, each layer's weights gathered
+where it runs; ``--tensor N``: Megatron tensor parallelism over the
+heads, the FFN rows and the vocabulary, the N ranks reading the same
+rows; ``--context N``: the N ranks of a context group read the same
+rows, each trains on its block of S/N positions, and the attention is
+ring attention over the group (``--ring-flash``: every hop on the
+kernels; else the dense/flash policy on the block's length, which on the
+card is the kernels); ``--moe-experts`` with ``--expert N``: each rank
+holds n_experts/N experts and the MoE layers exchange tokens with one
+``all_to_all`` pair, each rank routing its own tokens.  Every rank is one
+card under NCCL.  Refused with the ROADMAP item named: ``--pipeline`` > 1
+(C5) and ``--lora-rank`` with ``--fsdp`` or ``--tensor`` > 1 (C2b);
+``--packed`` with ``--context`` > 1 exits as the JAX example does.
 """
 
 from __future__ import annotations
@@ -56,7 +63,6 @@ from tpucfn_torch.examples.common import (  # noqa: E402
     add_cluster_args,
     exit_process,
     per_process_batch,
-    refuse_sharded_parameters,
     refuse_unported_planes,
     run_train_loop,
     stage_synthetic,
@@ -106,12 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported_options(args) -> None:
     """Exit non-zero, naming the ROADMAP item, for options the port does
     not have."""
-    refuse_sharded_parameters(args)
     refused = (
-        (args.moe_experts > 0 and args.expert > 1,
-         "--moe-experts with --expert > 1 (expert-sharded parameters)",
-         "C2"),
         (args.pipeline > 1, "--pipeline > 1 (pipeline parallelism)", "C5"),
+        (args.lora_rank > 0 and max(args.fsdp, args.tensor) > 1,
+         "--lora-rank with --fsdp or --tensor > 1 (adapters over sharded "
+         "base weights)", "C2b"),
     )
     for asked, what, item in refused:
         if asked:
@@ -157,14 +162,20 @@ def make_loss_fn(cfg, args, moe_route_group=None, mesh=None):
     packed loss over segment-masked attention with ``--packed``, else the
     chunked CE (``--ce-chunk``), else the CE over full logits; z-loss on
     each, and the MoE aux loss with ``--moe-experts`` (routed over
-    ``moe_route_group``'s global batch when given).  With ``--context``
+    ``moe_route_group``'s global batch when given, or with ``--expert``
+    > 1 expert parallel over ``mesh``'s expert axis).  With ``--context``
     > 1 it runs this rank's block of positions with ring attention over
-    ``mesh``'s context axis.  aux is ``{"accuracy": ...}`` (and the MoE
-    dropped fraction)."""
+    ``mesh``'s context axis, with ``--tensor`` > 1 tensor parallel over
+    its tensor axis.  aux is ``{"accuracy": ...}`` (and the MoE dropped
+    fraction)."""
     from tpucfn_torch.train import llama_loss
 
     model_kw = {} if moe_route_group is None else {
         "moe_route_group": moe_route_group}
+    if args.tensor > 1:
+        model_kw["tensor_mesh"] = mesh
+    if cfg.moe is not None and args.expert > 1:
+        model_kw["moe_expert_group"] = mesh.get_group("expert")
     if args.context > 1:
         from tpucfn_torch.kernels import make_ring_attention
 
@@ -233,7 +244,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     initialize_runtime(device=device)
 
-    from tpucfn_torch.collectives import axis_index, axis_size
+    from tpucfn_torch.collectives import axis_index, axis_size, group_of
     from tpucfn_torch.data import ShardedDataset, packed_loss_weight
     from tpucfn_torch.mesh import BATCH_AXES, MeshSpec, build_mesh
     from tpucfn_torch.models.llama import (causal_lm_loss_weight,
@@ -247,11 +258,17 @@ def main(argv=None) -> int:
         context=args.context, pipeline=args.pipeline, expert=args.expert),
         device_type=device.type)
     chunked = bool(args.ce_chunk) and not args.packed
+    # Without an expert axis a MoE routes over the global batch: the
+    # group of every rank that holds other tokens (the tensor axis's
+    # ranks hold the same ones).
+    routed = ("data", "fsdp", "context")
     route_group = None
-    if cfg.moe is not None and process_count() > 1:
+    if (cfg.moe is not None and args.expert == 1
+            and axis_size(routed, mesh=mesh) > 1):
         import torch.distributed as dist
 
-        route_group = dist.group.WORLD
+        route_group = dist.group.WORLD if args.tensor == 1 else group_of(
+            routed, mesh=mesh)
     init_fn = make_init_fn(cfg)
     loss_fn = make_loss_fn(cfg, args, route_group, mesh)
     rules = sharding_rules(cfg, tensor=args.tensor > 1)
@@ -270,7 +287,7 @@ def main(argv=None) -> int:
     # train_step_flops counts a full finetune's products; a LoRA step
     # makes no weight gradients of the base, so it leaves MFU unset.  A
     # rank of a context group counts its share of its rows' whole
-    # sequences.
+    # sequences, a rank of the tensor axis its share of the products.
     trainer = Trainer(
         mesh, rules, loss_fn, example_chain(args.steps or 1000),
         init_fn, device=device,
@@ -278,7 +295,7 @@ def main(argv=None) -> int:
         step_flops=None if args.lora_rank else lambda batch: train_step_flops(
             cfg, batch["tokens"].shape[0],
             batch["tokens"].shape[1] * args.context,
-            chunked_head=chunked) / args.context,
+            chunked_head=chunked) / (args.context * args.tensor),
         loss_weight=loss_weight)
     # The ranks of a context group read the same rows: the dataset splits
     # over the data-parallel coordinate.

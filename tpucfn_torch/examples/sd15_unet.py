@@ -20,7 +20,7 @@ cross-attention in each of its five transformer blocks), the 32x32
 stage's at 80 and the 16x16 stage's and the middle block's at 160.
 
 Data parallel over the ranks; ``--fsdp`` > 1 and ``--tensor`` > 1 are
-refused (ROADMAP Queue 1 C2).
+refused (ROADMAP Queue 1 C2b).
 """
 
 from __future__ import annotations

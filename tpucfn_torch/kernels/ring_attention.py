@@ -37,7 +37,7 @@ import torch
 
 from tpucfn_torch.collectives import axis_index, axis_size, ring_permute
 from tpucfn_torch.kernels.flash_attention import flash_attention_with_lse
-from tpucfn_torch.mesh import AXIS_CONTEXT, AXIS_TENSOR, BATCH_AXES, mesh_sizes
+from tpucfn_torch.mesh import AXIS_CONTEXT, AXIS_TENSOR, BATCH_AXES
 from tpucfn_torch.ops.attention import NEG_INF, dot_product_attention_with_lse
 
 
@@ -146,13 +146,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def _refuse_split_heads(mesh, heads_axis):
-    if heads_axis is not None and mesh_sizes(mesh).get(heads_axis, 1) > 1:
-        raise NotImplementedError(
-            f"heads split over {heads_axis!r} (tensor parallelism) is not "
-            "ported to tpucfn_torch yet (ROADMAP Queue 1 C2)")
-
-
 def make_ring_attention(mesh, *, seq_axis: str = AXIS_CONTEXT,
                         heads_axis: str | None = AXIS_TENSOR,
                         batch_axes: Sequence[str] = BATCH_AXES,
@@ -161,10 +154,11 @@ def make_ring_attention(mesh, *, seq_axis: str = AXIS_CONTEXT,
     blocks in, ring attention over ``seq_axis`` inside.  Plugs into
     ``CausalSelfAttention(attention_fn=...)``; the ring derives its blocks'
     offsets from the axis index and ignores ``q_offset``/``k_offset``.
-    ``batch_axes`` is kept for the JAX signature (each rank holds its own
-    rows); a ``heads_axis`` of size > 1 is refused (C2)."""
-    del batch_axes
-    _refuse_split_heads(mesh, heads_axis)
+    ``batch_axes`` and ``heads_axis`` are kept for the JAX signature: each
+    rank holds its own rows, and, with heads split over ``heads_axis``
+    (tensor parallelism), its own heads, which the ring runs on as they
+    are."""
+    del batch_axes, heads_axis
 
     def attention_fn(q, k, v, *, causal=True, mask=None, q_offset=0,
                      k_offset=0):

@@ -11,6 +11,12 @@ RoPE in fp32.  Matmul weights are stored in ``param_dtype`` and cast to
 the compute dtype in each call.  Training stores them in fp32 (master
 weights, fp32 gradients); serving stores them in the compute dtype, where
 the cast is a no-op — the same rounding, done once at load.
+
+Tensor parallelism (``tensor``, a :class:`~tpucfn_torch.parallel.TensorSplit`):
+the attention holds ``n_heads / T`` query heads and ``n_kv_heads / T`` KV
+heads of the rank, its q/k/v products column-parallel and its o product
+row-parallel, and the MLP ``ffn_dim / T`` rows the same way, so each
+layer ends in one sum over the axis.
 """
 
 from __future__ import annotations
@@ -104,6 +110,54 @@ class Dense(nn.Linear):
                         None if self.bias is None else self.bias.to(dt))
 
 
+def _caller(model: nn.Module, owner: str) -> str:
+    """The module whose call uses ``owner``'s parameters: ``owner`` itself,
+    or, for a holder with no forward of its own (stacked expert weights),
+    its nearest ancestor that has one."""
+    while owner and type(model.get_submodule(owner)).forward \
+            is nn.Module.forward:
+        owner = owner.rpartition(".")[0]
+    return owner
+
+
+def _bind_gathered(model: nn.Module, params, names, device) -> None:
+    """Binds each of ``names`` as its block (``params.local``), gathered
+    each time the module that uses it runs: a pre-hook puts the gathered
+    tensor in the parameter's place, a post-hook puts the block back.
+    The gather sits inside the module's call, so a checkpointed block
+    re-gathers in its recompute."""
+    callers: dict = {}
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        block = params.local[name].to(device=device)
+        want = module._parameters[leaf].shape
+        module._parameters[leaf] = block
+        callers.setdefault(_caller(model, owner), []).append(
+            (module, leaf, block, params.gather(name), want))
+
+    def gather(mod, args, entries):
+        for module, leaf, block, fn, want in entries:
+            full = fn(block)
+            if full.shape != want:
+                raise ValueError(
+                    f"{type(module).__name__}.{leaf}: the gathered "
+                    f"parameter is {tuple(full.shape)}, the model takes "
+                    f"{tuple(want)}")
+            module._parameters[leaf] = full
+
+    def restore(mod, args, out, entries):
+        for module, leaf, block, _, _ in entries:
+            module._parameters[leaf] = block
+
+    for caller, entries in callers.items():
+        module = model.get_submodule(caller)
+        module.register_forward_pre_hook(
+            lambda mod, args, e=entries: gather(mod, args, e))
+        module.register_forward_hook(
+            lambda mod, args, out, e=entries: restore(mod, args, out, e))
+
+
 def bind_state_dict(model: nn.Module, params, *, device=None,
                     trainable: bool = False) -> nn.Module:
     """``model`` (built on the meta device) over ``params``, its state
@@ -117,13 +171,28 @@ def bind_state_dict(model: nn.Module, params, *, device=None,
     very objects passed, so their gradients land where the caller looks,
     and a tensor computed from other tensors (a LoRA-merged weight) is
     bound as it is, so the gradient flows on into what it was computed
-    from."""
+    from.  ``params`` a :class:`tpucfn_torch.parallel.ShardedParams`
+    (trainable): a parameter with storage splits is bound as its block
+    and gathered at each call of its module."""
+    from tpucfn_torch.parallel.sharding import ShardedParams
+
     want = model.state_dict()
+    gathered = []
+    if isinstance(params, ShardedParams):
+        if not trainable:
+            raise ValueError("sharded parameters bind for training only")
+        gathered = [n for n in want if params.gather(n) is not None]
     given = {name: params[name].to(device=device, dtype=want[name].dtype)
-             for name in want}
+             for name in want if name not in gathered}
+    if gathered:
+        _bind_gathered(model, params, gathered, device)
     if not trainable:
         given = {name: t.detach() for name, t in given.items()}
-    model.load_state_dict(given, strict=True, assign=True)
+    missing = model.load_state_dict(given, strict=not gathered,
+                                    assign=True).missing_keys
+    if set(missing) != set(gathered):
+        raise KeyError(f"parameters not bound: "
+                       f"{sorted(set(missing) - set(gathered))}")
     if not trainable:
         return model.requires_grad_(False)
     for name, t in given.items():
@@ -148,15 +217,26 @@ class CausalSelfAttention(nn.Module):
     ``decode=True`` turns on the autoregressive KV cache: each call writes
     this step's K/V into the caller's cache tensors at each row's
     ``cache_index`` (in place) and attends over the whole prefix.  The
-    caller advances the index.  The RoPE tables span ``max_seq``."""
+    caller advances the index.  The RoPE tables span ``max_seq``.
+
+    ``tensor``: this rank holds ``n_heads / T`` query heads and ``n_kv_heads
+    / T`` KV heads (the rank's contiguous block of each, so its query
+    heads' KV heads are its own) and returns its partial sum of the
+    output projection, summed over the axis."""
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: int, head_dim: int,
                  *, rope_theta: float = 500000.0, max_seq: int = 8192,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype | None = None,
                  attention_fn: AttentionFn = dot_product_attention,
-                 decode: bool = False, device=None):
+                 decode: bool = False, device=None, tensor=None):
         super().__init__()
+        self.tensor = tensor
+        if tensor is not None:
+            if decode:
+                raise ValueError("decode mode runs unsplit heads")
+            n_heads = tensor.local(n_heads, "query heads")
+            n_kv_heads = tensor.local(n_kv_heads, "KV heads")
         self.n_heads, self.n_kv_heads, self.head_dim = n_heads, n_kv_heads, head_dim
         self.rope_theta, self.max_seq, self.dtype = rope_theta, max_seq, dtype
         self.attention_fn = attention_fn
@@ -178,6 +258,8 @@ class CausalSelfAttention(nn.Module):
         path's segment-masked op)."""
         attention_fn = attention_fn or self.attention_fn
         b, s, _ = x.shape
+        if self.tensor is not None:
+            x = self.tensor.copy_to(x)
         q = self.q_proj(x).reshape(b, s, self.n_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.n_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.n_kv_heads, self.head_dim)
@@ -221,17 +303,31 @@ class CausalSelfAttention(nn.Module):
             out = attention_fn(q, k, v, causal=True,
                                q_offset=q_offset, k_offset=q_offset)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
+        if self.tensor is not None:
+            return self.tensor.reduce_from(self.o_proj(out))
         return self.o_proj(out)
 
 
 class SwiGLUMLP(nn.Module):
+    """``tensor``: this rank's ``ffn_dim / T`` rows of gate/up (column
+    parallel) and columns of down (row parallel), the partial sums summed
+    over the axis."""
+
     def __init__(self, dim: int, ffn_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype | None = None, device=None):
+                 param_dtype: torch.dtype | None = None, device=None,
+                 tensor=None):
         super().__init__()
+        self.tensor = tensor
+        if tensor is not None:
+            ffn_dim = tensor.local(ffn_dim, "FFN rows")
         self.gate_proj = Dense(dim, ffn_dim, dtype, param_dtype, device)
         self.up_proj = Dense(dim, ffn_dim, dtype, param_dtype, device)
         self.down_proj = Dense(ffn_dim, dim, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tensor is None:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = self.tensor.copy_to(x)
+        return self.tensor.reduce_from(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)))

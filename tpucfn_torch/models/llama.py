@@ -173,21 +173,22 @@ class LlamaBlock(nn.Module):
     (:class:`~tpucfn_torch.models.moe.MoEMLP`)."""
 
     def __init__(self, cfg: LlamaConfig, attention_fn: AttentionFn,
-                 decode: bool, device=None, **moe_kw):
+                 decode: bool, device=None, tensor=None, **moe_kw):
         super().__init__()
         self.input_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         self.attn = CausalSelfAttention(
             cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, attention_fn=attention_fn,
-            decode=decode, device=device)
+            decode=decode, device=device, tensor=tensor)
         self.post_attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         if cfg.moe is not None:
             self.mlp = MoEMLP(cfg.dim, cfg.ffn_dim, cfg.moe, cfg.dtype,
-                              cfg.param_dtype, device, **moe_kw)
+                              cfg.param_dtype, device, tensor=tensor,
+                              **moe_kw)
         else:
             self.mlp = SwiGLUMLP(cfg.dim, cfg.ffn_dim, cfg.dtype,
-                                 cfg.param_dtype, device)
+                                 cfg.param_dtype, device, tensor=tensor)
 
     def forward(self, x, *, q_offset=0, rope=None, kv_cache=None,
                 cache_index=None, attention_fn=None):
@@ -214,11 +215,21 @@ class Llama(nn.Module):
     MoE layers' routing scope (:class:`~tpucfn_torch.models.moe.MoEMLP`):
     the serving engine routes each row alone, as the JAX engine's
     per-slot ``vmap`` does; data parallelism routes over the group's
-    global batch."""
+    global batch.
+
+    ``tensor_mesh`` with a ``tensor`` axis of size T > 1: Megatron tensor
+    parallelism as ``sharding_rules`` lays it out.  Each rank holds its
+    block of the heads, the FFN rows and the vocabulary (the embedding's
+    rows, looked up masked and summed over the axis; the LM head's rows,
+    whose logits are gathered, or with
+    :func:`chunked_causal_lm_loss` never gathered)."""
 
     def __init__(self, cfg: LlamaConfig, *, attention_fn: AttentionFn | None = None,
                  decode: bool = False, device=None, moe_per_row: bool = False,
-                 moe_route_group=None, moe_expert_group=None):
+                 moe_route_group=None, moe_expert_group=None,
+                 tensor_mesh=None):
+        from tpucfn_torch.parallel.tensor import tensor_split
+
         super().__init__()
         moe_kw = {} if cfg.moe is None else dict(
             per_row=moe_per_row, route_group=moe_route_group,
@@ -226,15 +237,18 @@ class Llama(nn.Module):
         self.cfg = cfg
         self.decode = decode
         self.attention_fn = attention_fn
+        self.tensor = tensor = tensor_split(tensor_mesh)
+        vocab = cfg.vocab_size if tensor is None else tensor.local(
+            cfg.vocab_size, "vocabulary rows")
         attention_fn = attention_fn or dot_product_attention
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim,
+        self.embed_tokens = nn.Embedding(vocab, cfg.dim,
                                          dtype=cfg.param_dtype or cfg.dtype,
                                          device=device)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, attention_fn, decode, device, **moe_kw)
+            LlamaBlock(cfg, attention_fn, decode, device, tensor, **moe_kw)
             for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
-        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
+        self.lm_head = nn.Linear(cfg.dim, vocab, bias=False,
                                  dtype=torch.float32, device=device)
         self._rope_tables: dict = {}  # device -> (cos, sin), made once
 
@@ -242,7 +256,8 @@ class Llama(nn.Module):
     def from_state_dict(cls, cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
                         *, attention_fn: AttentionFn | None = None,
                         decode: bool = False, device=None,
-                        trainable: bool = False, **moe_kw) -> "Llama":
+                        trainable: bool = False, tensor_mesh=None,
+                        **moe_kw) -> "Llama":
         """A model over ``params`` (the port's state dict).  Tensors already
         on ``device`` in their storage dtype are used as they are, not
         copied — several models (the engine's and ``generate``'s) can share
@@ -250,10 +265,11 @@ class Llama(nn.Module):
         trainer's parameters in each call.  The weights are frozen unless
         ``trainable``; then ``nn.Parameter`` values stay the very objects
         passed, so their gradients land where the caller looks.
-        ``moe_kw``: the MoE routing scope (see the class)."""
+        ``moe_kw``: the MoE routing scope (see the class); ``params``
+        hold this rank's blocks under ``tensor_mesh``."""
         with torch.device("meta"):
             model = cls(cfg, attention_fn=attention_fn, decode=decode,
-                        **moe_kw)
+                        tensor_mesh=tensor_mesh, **moe_kw)
         return bind_state_dict(model, params, device=device,
                                trainable=trainable)
 
@@ -270,13 +286,25 @@ class Llama(nn.Module):
         proposals are then garbage that verification rejects, where
         ``nn.Embedding`` would stop the card on a device-side assert."""
         v = self.cfg.vocab_size
-        x = self.embed_tokens(tokens.remainder(v))
         fits = (tokens >= -v) & (tokens < v)
+        ids = tokens.remainder(v)
+        if self.tensor is None:
+            x = self.embed_tokens(ids)
+        else:  # this rank's rows of the vocabulary, summed over the axis
+            rows = self.embed_tokens.num_embeddings
+            lo = self.tensor.index * rows
+            mine = (ids >= lo) & (ids < lo + rows)
+            x = self.embed_tokens((ids - lo).clamp(0, rows - 1))
+            x = self.tensor.reduce_from(torch.where(mine[..., None], x, 0.0))
         return torch.where(fits[..., None], x, torch.nan)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The fp32 LM head over final-norm hidden states."""
-        return F.linear(hidden.float(), self.lm_head.weight)
+        """The fp32 LM head over final-norm hidden states (under tensor
+        parallelism every rank's block, gathered)."""
+        if self.tensor is None:
+            return self.lm_head(hidden.float())
+        return self.tensor.gather_from(
+            self.lm_head(self.tensor.copy_to(hidden.float())), -1)
 
     def forward(self, tokens: torch.Tensor, *, q_offset=0,
                 cache: DecodeCache | None = None,
@@ -522,6 +550,7 @@ def chunked_causal_lm_loss(
     chunk_size: int = 512,
     z_loss: float = 0.0,
     next_tokens: torch.Tensor | None = None,
+    tensor_mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE + accuracy without the (B, S, V) fp32 logits.
 
@@ -530,14 +559,27 @@ def chunked_causal_lm_loss(
     each chunk's logits, reduces them to a CE sum and a hit count and
     drops them; each chunk runs under ``torch.utils.checkpoint``, so the
     backward recomputes its logits instead of keeping them.  Peak logits
-    memory is (B, chunk, V)."""
+    memory is (B, chunk, V).  Under ``tensor_mesh``'s tensor axis
+    ``lm_head_weight`` is this rank's (V/T, D) rows, and each chunk's
+    log-sum-exp, target logit and argmax span the axis
+    (:func:`tpucfn_torch.parallel.tensor.vocab_parallel_cross_entropy`):
+    (B, chunk, V/T) logits a rank, none gathered."""
+    from tpucfn_torch.parallel.tensor import (tensor_split,
+                                              vocab_parallel_cross_entropy)
+
     targets = _targets(tokens, next_tokens)
     b, n = targets.shape
     c = max(1, min(chunk_size, n))
+    split = tensor_split(tensor_mesh)
 
     def chunk_sums(w, h_c, t_c):
-        per_tok, hit = token_cross_entropy(F.linear(h_c.float(), w.float()),
-                                           t_c, z_loss)
+        if split is None:
+            per_tok, hit = token_cross_entropy(
+                F.linear(h_c.float(), w.float()), t_c, z_loss)
+        else:
+            per_tok, hit = vocab_parallel_cross_entropy(
+                F.linear(split.copy_to(h_c.float()), w.float()), t_c,
+                z_loss, split)
         return per_tok.sum(), hit.float().sum()
 
     ce = correct = hidden.new_zeros((), dtype=torch.float32)

@@ -54,6 +54,12 @@ Routing scopes (chosen by whoever builds the layer):
   ``pmean`` over its batch axes).  ``dispatch="dense"`` with an expert
   group of more than one rank raises, as in the JAX package.
 
+Tensor parallelism (``tensor``, a :class:`~tpucfn_torch.parallel.TensorSplit`):
+each expert holds ``ffn_dim / T`` of its FFN rows, as the JAX rules put
+them on ``tensor``; the routing is the same on every rank of the axis,
+and the experts' partial outputs are summed over it before the gates
+weight them.
+
 ``forward`` returns ``(out, aux, dropped)``; :class:`Llama` sums ``aux``
 over its layers and averages ``dropped`` (the JAX layer sows them).
 """
@@ -204,8 +210,11 @@ class MoEMLP(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype | None = None, device=None, *,
                  per_row: bool = False, route_group=None,
-                 expert_group=None):
+                 expert_group=None, tensor=None):
         super().__init__()
+        self.tensor = tensor
+        if tensor is not None:
+            ffn_dim = tensor.local(ffn_dim, "FFN rows")
         if moe.dispatch not in ("ragged", "dense"):
             raise ValueError(
                 f"unknown MoE dispatch {moe.dispatch!r} (ragged|dense)")
@@ -243,16 +252,21 @@ class MoEMLP(nn.Module):
         wg, wu, wd = (m.weight.to(dt) for m in (
             self.experts.gate_proj, self.experts.up_proj,
             self.experts.down_proj))
+        if self.tensor is not None:
+            expert_in = self.tensor.copy_to(expert_in)
         h = F.silu(torch.bmm(expert_in, wg.transpose(1, 2))) \
             * torch.bmm(expert_in, wu.transpose(1, 2))
-        return torch.bmm(h, wd.transpose(1, 2))
+        out = torch.bmm(h, wd.transpose(1, 2))
+        if self.tensor is not None:
+            return self.tensor.reduce_from(out)
+        return out
 
     def forward(self, x: torch.Tensor):
         """(B, S, D) -> ((B, S, D) in the compute dtype, aux, dropped)."""
         cfg = self.moe
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
-        logits = F.linear(x.float(), self.router.weight.float())
+        logits = self.router(x.float())  # fp32 weight: an fp32 product
         if self.ep > 1:
             return self._ep_forward(x, logits.reshape(1, b * s, e))
         if self.per_row:

@@ -1,13 +1,18 @@
-"""Sharding rules, their presets and batch placement."""
+"""Sharding rules, their presets, their placement and batch placement."""
 
-from tpucfn_torch.parallel.sharding import (ShardingRules, batch_spec,
-                                            context_block,
+from tpucfn_torch.parallel.sharding import (COMPUTE_AXES, NamedSharding,
+                                            ShardedParams, ShardingRules,
+                                            batch_spec, context_block,
                                             make_partition_spec,
-                                            next_block_tokens,
-                                            placed_on_split_axes,
-                                            shard_batch, spec_axes)
-from tpucfn_torch.parallel.presets import dense_rules, transformer_rules
+                                            named_sharding_tree,
+                                            next_block_tokens, shard_batch,
+                                            spec_axes)
+from tpucfn_torch.parallel.presets import (PRESETS, dense_rules,
+                                           transformer_rules, zero1_rules)
+from tpucfn_torch.parallel.tensor import TensorSplit, tensor_split
 
-__all__ = ["ShardingRules", "batch_spec", "context_block", "dense_rules",
-           "make_partition_spec", "next_block_tokens", "placed_on_split_axes",
-           "shard_batch", "spec_axes", "transformer_rules"]
+__all__ = ["COMPUTE_AXES", "NamedSharding", "PRESETS", "ShardedParams",
+           "ShardingRules", "TensorSplit", "batch_spec", "context_block",
+           "dense_rules", "make_partition_spec", "named_sharding_tree",
+           "next_block_tokens", "shard_batch",
+           "spec_axes", "tensor_split", "transformer_rules", "zero1_rules"]

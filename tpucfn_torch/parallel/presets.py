@@ -1,15 +1,16 @@
-"""Sharding-rule presets (the port of ``dense_rules`` and
-``transformer_rules`` in ``tpucfn/parallel/presets.py``).
+"""Sharding-rule presets (the port of ``tpucfn/parallel/presets.py``:
+``dense_rules``, ``transformer_rules``, ``zero1_rules`` and ``PRESETS``).
 
 The JAX package's rules over the port's parameter names.  A JAX
 ``DenseGeneral`` kernel is (in, out) and an ``nn.Linear`` weight (out,
 in), so each dense spec is the JAX one reversed, and ``/kernel`` is
 ``.weight``; an embedding is (vocab, dim) on both sides.  A convolution's
 kernel is (kh, kw, in, out) there and (out, in, kh, kw) here.  The UNet's
-convolutions match no rule, in either package: they replicate.  Placement
-waits: the trainer refuses any rule that puts a parameter on a mesh axis
-of size > 1 (ROADMAP C2), so with those axes at 1 these rules place
-nothing.
+convolutions match no rule, in either package: they replicate.  The
+port's optimizer state is named ``opt/<i>/exp_avg/<name>``,
+``opt/<i>/exp_avg_sq/<name>`` and ``opt/<i>/momentum_buffer/<name>``
+(:mod:`tpucfn_torch.train.optim`) where optax's is ``mu``/``nu``/
+``trace``, so :func:`zero1_rules` scopes the model rules to those names.
 """
 
 from __future__ import annotations
@@ -63,3 +64,33 @@ def transformer_rules(fsdp: bool = True, tensor: bool = True,
         )
         + _REPLICATED_TAIL
     )
+
+
+# The port's names of the optimizer moments (optax's mu / nu / trace).
+_MOMENTS = r"(^|/)(exp_avg|exp_avg_sq|momentum_buffer)/.*"
+
+
+def zero1_rules(model_rules: ShardingRules | None = None) -> ShardingRules:
+    """ZeRO-1: replicated parameters, optimizer moments split over
+    ``fsdp``.  Each split rule of ``model_rules`` (default: the fsdp dense
+    preset) is re-scoped to the moments' names; a parameter's own name
+    falls through to the replicated tail.  The forward and backward see
+    whole parameters (no per-layer gathers, unlike FSDP), and each rank
+    updates its block of every parameter, then gathers the others'."""
+    model_rules = model_rules or dense_rules(fsdp=True)
+    opt_scoped = tuple(
+        ((_MOMENTS + pat.lstrip("^")), spec)
+        for pat, spec in model_rules.rules
+        if tuple(spec) != ()
+    )
+    return ShardingRules(opt_scoped + _REPLICATED_TAIL)
+
+
+PRESETS = {
+    "dp": lambda: dense_rules(fsdp=False),
+    "fsdp_dense": lambda: dense_rules(fsdp=True),
+    "zero1": lambda: zero1_rules(),
+    "transformer": lambda: transformer_rules(),
+    "transformer_tp_only": lambda: transformer_rules(fsdp=False),
+    "transformer_fsdp_only": lambda: transformer_rules(tensor=False),
+}

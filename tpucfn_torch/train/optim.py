@@ -13,7 +13,9 @@ back into ``state`` in place.
 * :func:`clip_by_global_norm` — optax's formula, g * max_norm /
   max(||g||, max_norm), with the norm over every gradient together
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is not
-  used).
+  used).  Over :class:`ShardedGrads`, each rank's blocks of the global
+  gradients, the norm is the global one: the squares summed over every
+  block, each element once.
 * :func:`adamw` — ``torch.optim.AdamW`` with optax's defaults stated
   (b1 0.9, b2 0.999, eps 1e-8 added outside the square root,
   weight_decay 1e-4; PyTorch's own default decay is 0.01).  The learning
@@ -68,6 +70,27 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+class ShardedGrads(dict):
+    """Gradients that are this rank's blocks of the global ones (the
+    trainer's, under sharded rules): ``weights[name]`` is one over the
+    number of ranks that hold the same block, so the global sum of
+    squares is one all-reduce of the weighted local sums."""
+
+    def __init__(self, grads: dict[str, torch.Tensor],
+                 weights: dict[str, float]):
+        super().__init__(grads)
+        self.weights = weights
+
+    def global_norm(self) -> torch.Tensor:
+        import torch.distributed as dist
+
+        sq = torch.stack([torch.linalg.vector_norm(g.float()) ** 2
+                          * self.weights[name] for name, g in self.items()])
+        total = sq.sum().double()
+        dist.all_reduce(total)
+        return total.sqrt().float()
+
+
 class _ClipByGlobalNorm:
     def __init__(self, max_norm: float):
         self.max_norm = float(max_norm)
@@ -84,8 +107,11 @@ class _ClipByGlobalNorm:
     def update(self, grads, state, params):
         del state, params
         gs = list(grads.values())
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in gs]))
+        if isinstance(grads, ShardedGrads):
+            norm = grads.global_norm()
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in gs]))
         factor = self.max_norm / torch.clamp(norm, min=self.max_norm)
         torch._foreach_mul_(gs, factor)
         return grads

@@ -7,6 +7,13 @@ AdamW, the ``torch.optim.AdamW`` holding the moments); ``model_state``
 carries non-differentiated collections (the parameter EMA under
 ``"ema"``); ``generator`` is the step's random stream, consumed in order.
 
+Under sharded rules (:class:`tpucfn_torch.train.Trainer`) the params are
+this rank's blocks, ``opt_params`` are the tensors the optimizer updates
+(views of the params' blocks, smaller where the rules split the moments
+further: ZeRO-1), and ``shardings`` name the
+:class:`~tpucfn_torch.parallel.NamedSharding` of every entry of
+:meth:`TrainState.state_dict`, which a checkpoint saves and restores by.
+
 :meth:`TrainState.state_dict` names every tensor of the state in one flat
 dict (the live tensors, not copies): ``step``, ``params/<name>``,
 ``model_state/<path>`` (nested dicts joined with ``/``), ``opt/<path>``
@@ -30,14 +37,26 @@ class TrainState:
     opt_state: Any
     generator: torch.Generator
     tx: Any = None  # the chain that owns opt_state (for state_dict)
+    # What the optimizer updates, when not the params themselves.
+    opt_params: dict[str, torch.Tensor] | None = None
+    # state_dict name -> NamedSharding, when the state is placed by rules.
+    shardings: dict[str, Any] | None = None
 
     @classmethod
     def create(cls, params: dict[str, torch.Tensor], tx,
                generator: torch.Generator,
-               model_state: dict[str, Any] | None = None) -> "TrainState":
+               model_state: dict[str, Any] | None = None,
+               opt_params: dict[str, torch.Tensor] | None = None
+               ) -> "TrainState":
         return cls(step=0, params=params,
                    model_state={} if model_state is None else model_state,
-                   opt_state=tx.init(params), generator=generator, tx=tx)
+                   opt_state=tx.init(opt_params or params),
+                   generator=generator, tx=tx, opt_params=opt_params)
+
+    @property
+    def update_params(self) -> dict[str, torch.Tensor]:
+        """The tensors the optimizer state belongs to."""
+        return self.opt_params or self.params
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         sd = {"step": torch.tensor(self.step, dtype=torch.int64),
@@ -45,7 +64,7 @@ class TrainState:
         sd.update({f"params/{k}": v for k, v in self.params.items()})
         sd.update(_flatten("model_state", self.model_state))
         sd.update({f"opt/{k}": v for k, v in self.tx.state_dict(
-            self.opt_state, self.params).items()})
+            self.opt_state, self.update_params).items()})
         return sd
 
     def load_state_dict(self, sd: dict[str, torch.Tensor]) -> None:
@@ -54,7 +73,7 @@ class TrainState:
                 v.copy_(sd[f"params/{k}"])
             for k, v in _flatten("model_state", self.model_state).items():
                 v.copy_(sd[k])
-        self.tx.load_state_dict(self.opt_state, self.params, {
+        self.tx.load_state_dict(self.opt_state, self.update_params, {
             k[len("opt/"):]: v for k, v in sd.items() if k.startswith("opt/")})
         self.generator.set_state(sd["generator"])
         self.step = int(sd["step"])

@@ -12,36 +12,57 @@ optimizer chain in place.
 
 ``mesh`` (:func:`tpucfn_torch.mesh.build_mesh`) and ``rules``
 (:class:`tpucfn_torch.parallel.ShardingRules`) may both be None: one
-device, no group.  With a mesh the trainer runs data parallel over its
-ranks: rank 0's parameters are broadcast at ``init``; after the
-microbatches of ``grad_accum`` the gradients are averaged across the
-ranks with one coalesced ``all_reduce``, before the optimizer chain (and
-so before its global-norm clip), as JAX's mean loss over the sharded
-global batch gives; the returned loss and metrics are averaged the same
-way.  A loss that averages over a count that differs between ranks
-(the packed loss: each rank's valid positions) passes ``loss_weight``,
-that count for a batch: each rank's loss is then multiplied by its share
-of the group's count (per microbatch under ``grad_accum``) BEFORE its
-backward, and so are its metrics, so the result is the global mean that
-JAX's loss over the whole batch gives.
+device, no group.  With a mesh, the rules alone decide where each tensor
+of the state lives, as in the JAX package: every name of
+:meth:`TrainState.state_dict` (``params/<name>``, the moments
+``opt/<i>/exp_avg/<name>``, ``model_state/ema/<name>``, the step, the
+update counts and the generator, which always replicate) takes the
+first matching rule's spec, and each rank holds its block
+(:class:`tpucfn_torch.parallel.NamedSharding`).  The state is born
+sharded: ``init`` runs ``init_fn`` (rank 0's values, broadcast), keeps
+each parameter's block and frees the rest, one parameter at a time, so
+the params for a seed are the unsharded init's.
 
-Context parallelism (``TrainerConfig(batch_extra_axes=("context",))``
-with a ``context`` axis of size > 1): each rank's batch is its rows'
-block of positions (:func:`tpucfn_torch.parallel.shard_batch`), its loss
-runs the model over that block with ring or Ulysses attention, and the
-group is every rank, data x context.  The attention's backward carries
-each rank's loss into the K/V gradients of every other rank of its
-context group, so a rank's gradient is not its own loss's alone: that is
-why the weights scale the losses before the backward, where a weight on
-the gradients after it would not give the global mean.  Pass
-``loss_weight`` = each rank's own prediction count
-(:func:`tpucfn_torch.models.llama.causal_lm_loss_weight` for the causal
-LM losses, whose last block predicts one token fewer a row); the
-reported loss and metrics are then the global ones, equal on every
-rank.  A rule that places a parameter on a mesh axis of size > 1 (FSDP,
-tensor parallelism) is refused (ROADMAP C2), and so is any other axis of
-size > 1 outside the batch axes (pipeline C5, tensor C2).  The state
-is updated in place, what donation buys in JAX; with
+The step, by placement:
+
+* the batch is this rank's rows, split over the batch axes (data, fsdp,
+  expert, and the context axis's positions with
+  ``TrainerConfig(batch_extra_axes=("context",))``); the ranks of the
+  ``tensor`` axis hold the same rows;
+* a split over ``tensor`` or ``expert`` is a compute split: the loss's
+  model runs on the block (Megatron layers over the rank's heads, FFN
+  rows and vocabulary; an expert-parallel MoE over its experts).  A
+  split over any other axis (FSDP) only stores the parameter: the loss
+  gets a :class:`tpucfn_torch.parallel.ShardedParams`, and the model
+  gathers each parameter where it uses it, a layer at a time, its
+  backward reduce-scattering the gradient over that axis;
+* after the microbatches of ``grad_accum`` each gradient is summed over
+  the batch axes its parameter is replicated on (one coalesced
+  ``all_reduce`` per set of axes) and divided by the batch world (the
+  ranks that see different rows), before the optimizer chain, as JAX's
+  mean loss over the sharded global batch gives.  So a gradient split
+  over fsdp is not summed over fsdp again; an expert's is never summed
+  over ``expert`` (the ``all_to_all``'s backward already brought every
+  rank's tokens to it); none is summed over ``tensor``, whose ranks
+  already hold the whole gradient of a replicated parameter;
+* the moments may be split further than their parameter (ZeRO-1,
+  :func:`tpucfn_torch.parallel.zero1_rules`): each rank updates its block
+  of the parameter and gathers the others'.  Under any split the clip's
+  norm is the global one (:class:`tpucfn_torch.train.optim.ShardedGrads`).
+
+The returned loss and metrics are averaged over every rank (the tensor
+axis's ranks hold the same ones).  A loss that averages over a count that
+differs between ranks (the packed loss: each rank's valid positions; the
+causal loss on context blocks) passes ``loss_weight``, that count for a
+batch: each rank's loss is then multiplied by its share of the group's
+count (per microbatch under ``grad_accum``) BEFORE its backward, and so
+are its metrics, so the result is the global mean that JAX's loss over
+the whole batch gives.  Under context parallelism the attention's
+backward carries each rank's loss into the K/V gradients of every other
+rank of its context group, so a rank's gradient is not its own loss's
+alone: that is why the weights scale the losses before the backward.
+A ``pipeline`` axis of size > 1 is refused (ROADMAP C5).  The state is
+updated in place, what donation buys in JAX; with
 ``TrainerConfig(donate_state=False)`` a step updates a copy and leaves
 the state it was given unchanged.  Not ported: the compile warm start
 (D2).
@@ -57,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -114,6 +136,23 @@ class TrainerConfig:
     ema_decay: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A tensor of the state by its global shape, dtype and placement."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: object
+
+
+# Scalars and the generator replicate whatever the rules say (the JAX
+# trainer's step / rng / count).
+_REPLICATED_STATE = (r"(^|/)(step|generator|count)($|/)", ())
+# The name the rules are asked for the moments of a parameter: AdamW's
+# first moment (ZeRO's rules name every moment alike).
+_MOMENT = "opt/exp_avg/{}"
+
+
 class Trainer:
     """Binds (mesh, rules, loss, optimizer chain, init) into ``init``/
     ``init_or_resume``/``step``/``eval_step`` on this process's device: the
@@ -131,28 +170,33 @@ class Trainer:
         averages over in ``batch``, for data and context parallelism when
         it differs between ranks; None: every rank's loss averages over
         the same count."""
-        from tpucfn_torch.mesh import (AXIS_CONTEXT, BATCH_AXES,
-                                       mesh_device, mesh_sizes)
+        from tpucfn_torch.mesh import (AXIS_CONTEXT, AXIS_PIPELINE,
+                                       BATCH_AXES, mesh_device, mesh_sizes)
 
         if (mesh is None) != (rules is None):
             raise NotImplementedError(
                 "a mesh without sharding rules, or rules without a mesh: "
-                "pass both (data parallelism) or neither (one device)")
+                "pass both or neither (one device)")
         if config.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
-        self.world = 1
+        self.world = self.batch_world = 1
+        self.batch_axes: tuple[str, ...] = ()
         if mesh is not None:
-            split = {a: n for a, n in mesh_sizes(mesh).items()
-                     if n > 1 and a not in BATCH_AXES
-                     and not (a == AXIS_CONTEXT
-                              and a in config.batch_extra_axes)}
-            if split:
+            sizes = mesh_sizes(mesh)
+            if sizes[AXIS_PIPELINE] > 1:
                 raise NotImplementedError(
-                    f"mesh axes {split}: the port's Trainer runs data "
-                    "parallel only, and context parallel over a batch "
-                    "split with TrainerConfig(batch_extra_axes="
-                    "('context',)); tensor parallelism (ROADMAP C2) and "
-                    "pipelines (C5) are not ported yet")
+                    f"mesh axis pipeline={sizes[AXIS_PIPELINE]}: pipelines "
+                    "are not ported to tpucfn_torch yet (ROADMAP C5)")
+            if (sizes[AXIS_CONTEXT] > 1
+                    and AXIS_CONTEXT not in config.batch_extra_axes):
+                raise NotImplementedError(
+                    f"mesh axis context={sizes[AXIS_CONTEXT]}: the trainer "
+                    "runs context parallel over a batch split with "
+                    "TrainerConfig(batch_extra_axes=('context',))")
+            self.batch_axes = tuple(
+                a for a in (*BATCH_AXES, *config.batch_extra_axes)
+                if a is not None and sizes[a] > 1)
+            self.batch_world = math.prod(sizes[a] for a in self.batch_axes)
             self.world = mesh.size()
             if device is None:
                 device = mesh_device(mesh)
@@ -166,39 +210,158 @@ class Trainer:
         self.config = config
         self.step_flops = step_flops
         self.loss_weight = loss_weight
+        self._abstract_state: dict[str, ShapeDtypeStruct] | None = None
+        self._groups: dict = {}
 
-    def _check_rules(self, params: dict) -> None:
-        from tpucfn_torch.parallel.sharding import (make_partition_spec,
-                                                    placed_on_split_axes)
+    # ---- placement -----------------------------------------------------
 
-        placed = placed_on_split_axes(make_partition_spec(self.rules, params),
-                                      self.mesh)
-        if placed:
-            shown = ", ".join(f"{n} on {a}" for n, a in list(placed.items())[:3])
-            raise NotImplementedError(
-                f"the sharding rules place {len(placed)} parameters on mesh "
-                f"axes of size > 1 ({shown}, ...): sharded parameters (FSDP, "
-                "tensor parallelism) are not ported yet (ROADMAP C2); run "
-                "with those axes at 1")
+    def _state_rules(self):
+        return self.rules.extended([_REPLICATED_STATE])
+
+    @staticmethod
+    def _opt_rank_mismatch(path: str, spec, ndim: int):
+        # Optimizer scalars (AdamW's per-parameter step) mirror the
+        # parameter's name at a lower rank: they replicate.
+        if path.startswith("opt/"):
+            return (None,) * ndim
+        raise ValueError(f"rule spec {spec} has {len(spec)} entries but "
+                         f"{path!r} has rank {ndim}")
+
+    def _sharding(self, name: str, ndim: int):
+        from tpucfn_torch.parallel.sharding import NamedSharding
+
+        return NamedSharding(self.mesh, self._state_rules().spec_for(
+            name, ndim, self._opt_rank_mismatch))
+
+    def _place(self, shapes: dict[str, tuple]) -> None:
+        """Each parameter's placement (of the parameter and of its
+        update), its storage splits (gathered at use), the batch axes its
+        gradient is summed over, and the splits its update adds."""
+        from tpucfn_torch.parallel.sharding import spec_axes, storage_splits
+
+        self._param_sh, self._update_sh = {}, {}
+        self._storage, self._reduce_over, self._update_splits = {}, {}, {}
+        for name, shape in shapes.items():
+            p = self._param_sh[name] = self._sharding(f"params/{name}",
+                                                      len(shape))
+            u = self._update_sh[name] = self._sharding(_MOMENT.format(name),
+                                                       len(shape))
+            self._storage[name] = storage_splits(p)
+            split = spec_axes(p.spec)
+            self._reduce_over[name] = tuple(a for a in self.batch_axes
+                                            if a not in split)
+            own, upd = dict(p.splits()), dict(u.splits())
+            if any(upd.get(d) != axes for d, axes in own.items()):
+                raise NotImplementedError(
+                    f"{name}: the moments ({u.spec}) do not keep the "
+                    f"parameter's split ({p.spec})")
+            more = [(d, axes) for d, axes in upd.items() if d not in own]
+            self._update_splits[name] = more
+
+    def _views(self, params: dict) -> dict | None:
+        """The tensors the optimizer updates: a parameter's block, or its
+        narrower block where the moments split further (views, so the
+        update lands in the parameter); None when they are the params."""
+        from tpucfn_torch.collectives import axis_index, axis_size
+
+        if not any(self._update_splits.values()):
+            return None
+        views = {}
+        for name, p in params.items():
+            v = p
+            for dim, axes in self._update_splits[name]:
+                n = axis_size(axes, mesh=self.mesh)
+                block = v.shape[dim] // n
+                v = v.detach().narrow(dim, axis_index(axes, mesh=self.mesh)
+                                      * block, block)
+            views[name] = v
+        return views
+
+    def _record(self, state: TrainState, shapes: dict[str, tuple]) -> None:
+        """The state's shardings (every ``state_dict`` name through the
+        rules) and its abstract (global) shapes; a tensor whose block is
+        not what its name's rule gives is refused."""
+        shardings, abstract = {}, {}
+        for key, local in state.state_dict().items():
+            sh = shardings[key] = self._sharding(key, local.ndim)
+            name = key.rsplit("/", 1)[-1]
+            full = shapes.get(name)
+            if full is None or len(full) != local.ndim:
+                full = sh.global_shape(local.shape)
+            if sh.local_shape(full) != tuple(local.shape):
+                raise NotImplementedError(
+                    f"state entry {key}: {tuple(local.shape)} is not the "
+                    f"block {sh.local_shape(full)} of {tuple(full)} that "
+                    f"its rule {sh.spec} places here")
+            abstract[key] = ShapeDtypeStruct(tuple(full), local.dtype, sh)
+        state.shardings = shardings
+        self._abstract_state = abstract
+
+    def _abstract(self) -> dict[str, ShapeDtypeStruct]:
+        if self._abstract_state is None:
+            raise RuntimeError("the state's shapes are recorded by init(); "
+                               "call it first")
+        return self._abstract_state
+
+    def state_shardings(self) -> dict:
+        """``state_dict`` name -> its
+        :class:`~tpucfn_torch.parallel.NamedSharding`."""
+        return {k: a.sharding for k, a in self._abstract().items()}
+
+    def abstract_state(self) -> dict[str, ShapeDtypeStruct]:
+        """``state_dict`` name -> global shape, dtype and sharding: what a
+        restore onto another layout reads the checkpoint into."""
+        return dict(self._abstract())
+
+    def param_spec(self) -> dict:
+        """``state_dict`` name -> spec."""
+        return {k: a.sharding.spec for k, a in self._abstract().items()}
+
+    def batch_sharding(self):
+        from tpucfn_torch.parallel.sharding import NamedSharding, batch_spec
+
+        return NamedSharding(self.mesh,
+                             batch_spec(self.config.batch_extra_axes))
+
+    def _group(self, axes: tuple[str, ...]):
+        """The process group of ``axes``: the default one when they are
+        every axis of size > 1."""
+        from tpucfn_torch.collectives import group_of
+        from tpucfn_torch.mesh import mesh_sizes
+
+        every = {a for a, n in mesh_sizes(self.mesh).items() if n > 1}
+        if set(axes) == every:
+            return None
+        if axes not in self._groups:
+            self._groups[axes] = group_of(axes, mesh=self.mesh)
+        return self._groups[axes]
+
+    # ---- init ----------------------------------------------------------
 
     def init(self, seed: int) -> TrainState:
         """Params from ``init_fn`` with a generator seeded ``seed`` on the
-        trainer's device (moved there, as ``nn.Parameter``s; under data
-        parallelism rank 0's, broadcast), the optimizer state, and the step
+        trainer's device (moved there, as ``nn.Parameter``s; with a group
+        rank 0's, broadcast; under split rules each rank's block), the
+        optimizer state (its moments placed by the rules), and the step
         generator, seeded ``seed + 1``."""
         params, model_state = self.init_fn(
             torch.Generator(device=self.device).manual_seed(seed))
-        # .to() returns a Parameter already on the device as it is.
-        moved = {name: t.to(self.device) for name, t in params.items()}
-        params = {name: t if isinstance(t, nn.Parameter)
-                  else nn.Parameter(t.detach()) for name, t in moved.items()}
+        shapes = {name: tuple(t.shape) for name, t in params.items()}
         if self.rules is not None:
-            self._check_rules(params)
-        if self.world > 1:
-            import torch.distributed as dist
+            self._place(shapes)
+        params, out = dict(params), {}
+        for name in list(params):
+            # .to() returns a Parameter already on the device as it is.
+            t = params.pop(name).to(self.device)
+            if self.world > 1:
+                import torch.distributed as dist
 
-            for p in params.values():
-                dist.broadcast(p.data, src=0)
+                dist.broadcast(t.data, src=0)
+            if self.rules is not None and self._param_sh[name].is_split():
+                t = self._param_sh[name].shard(t.detach())
+            out[name] = t if isinstance(t, nn.Parameter) \
+                else nn.Parameter(t.detach())
+        params = out
         model_state = dict(model_state or {})
         if self.config.ema_decay:
             if "ema" in model_state:
@@ -206,10 +369,14 @@ class Trainer:
                                  "ema_decay owns that key")
             model_state["ema"] = {name: p.detach().clone()
                                   for name, p in params.items()}
-        return TrainState.create(
+        state = TrainState.create(
             params, self.tx,
             torch.Generator(device=self.device).manual_seed(seed + 1),
-            model_state)
+            model_state,
+            opt_params=None if self.rules is None else self._views(params))
+        if self.rules is not None:
+            self._record(state, shapes)
+        return state
 
     def init_or_resume(self, seed: int, ckpt=None, *, fresh: bool = False
                        ) -> tuple[TrainState, int | None]:
@@ -252,11 +419,78 @@ class Trainer:
         for t, avg in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
             t.copy_(avg)
 
+    def _reduce_grads(self, grads: dict[str, torch.Tensor]) -> None:
+        """Each gradient summed over the batch axes its parameter is
+        replicated on (one flat all_reduce per set of axes) and divided by
+        the batch world, in place."""
+        import torch.distributed as dist
+        from torch._utils import (_flatten_dense_tensors,
+                                  _unflatten_dense_tensors)
+
+        buckets: dict[tuple, list] = {}
+        for name, g in grads.items():
+            buckets.setdefault(self._reduce_over[name], []).append(g)
+        for axes, gs in buckets.items():
+            if not axes:
+                torch._foreach_div_(gs, self.batch_world)
+                continue
+            flat = _flatten_dense_tensors(gs)
+            dist.all_reduce(flat, group=self._group(axes))
+            flat.div_(self.batch_world)
+            for g, r in zip(gs, _unflatten_dense_tensors(flat, gs)):
+                g.copy_(r)
+
+    def _update_grads(self, grads: dict[str, torch.Tensor]) -> dict:
+        """The gradients of what the optimizer updates: each narrowed to
+        its update's block, as :class:`ShardedGrads` (the global clip
+        norm) when any update is a block of its parameter."""
+        from tpucfn_torch.collectives import axis_index, axis_size
+        from tpucfn_torch.train.optim import ShardedGrads
+
+        if self.rules is None or not any(
+                sh.is_split() for sh in self._update_sh.values()):
+            return grads
+        out = {}
+        for name, g in grads.items():
+            for dim, axes in self._update_splits[name]:
+                block = g.shape[dim] // axis_size(axes, mesh=self.mesh)
+                g = g.narrow(dim, axis_index(axes, mesh=self.mesh) * block,
+                             block)
+            out[name] = g
+        return ShardedGrads(out, {n: 1.0 / sh.replicas()
+                                  for n, sh in self._update_sh.items()})
+
+    def _gather_updates(self, state: TrainState) -> None:
+        """Where the optimizer updated a block of a parameter, every
+        rank's updated block gathered back into the parameter."""
+        from tpucfn_torch.collectives import all_gather
+
+        with torch.no_grad():
+            for name, splits in self._update_splits.items():
+                if not splits:
+                    continue
+                t = state.opt_params[name]
+                for dim, axes in reversed(splits):
+                    t = all_gather(t.contiguous(), axes, mesh=self.mesh,
+                                   gather_axis=dim)
+                state.params[name].copy_(t)
+
+    def _loss_params(self, params: dict):
+        """What the loss reads: the params, or, with storage splits, a
+        :class:`~tpucfn_torch.parallel.ShardedParams` over them."""
+        if self.rules is None or not any(self._storage.values()):
+            return params
+        from tpucfn_torch.parallel.sharding import ShardedParams
+
+        return ShardedParams(params, self.mesh, self._storage)
+
     def _rank_scales(self, microbatches: list[dict]) -> list[float] | None:
         """Per microbatch, ``world * w / W``: this rank's ``loss_weight``
-        ``w`` over the group's total ``W``, times the world size that
-        :meth:`_mean_over_ranks` divides by; each scales its microbatch's
-        loss before the backward.  None when no weighting is needed."""
+        ``w`` over the total ``W`` of every rank (each batch counted once
+        for each rank of the axes that share it, so this is the batch
+        world's share), times the batch world that the gradients are
+        divided by; each scales its microbatch's loss before the
+        backward.  None when no weighting is needed."""
         if self.world == 1 or self.loss_weight is None:
             return None
         import torch.distributed as dist
@@ -285,9 +519,10 @@ class Trainer:
                         if accum > 1 else [batch])
         scales = self._rank_scales(microbatches)
         mstate = state.model_state
+        seen = self._loss_params(state.params)
         grads = loss = aux = None
         for i, mb in enumerate(microbatches):
-            l_i, (aux_i, mstate) = self.loss_fn(state.params, mstate, mb,
+            l_i, (aux_i, mstate) = self.loss_fn(seen, mstate, mb,
                                                 state.generator)
             aux_i = {k: v.detach() for k, v in aux_i.items()}
             if scales is not None:
@@ -315,9 +550,11 @@ class Trainer:
         state and the generator's position."""
         params = {n: nn.Parameter(p.detach().clone())
                   for n, p in state.params.items()}
-        opt_state = state.tx.init(params)
-        state.tx.load_state_dict(opt_state, params, state.tx.state_dict(
-            state.opt_state, state.params))
+        views = None if self.rules is None else self._views(params)
+        opt_state = state.tx.init(views or params)
+        state.tx.load_state_dict(opt_state, views or params,
+                                 state.tx.state_dict(state.opt_state,
+                                                     state.update_params))
 
         def clone(tree):
             if isinstance(tree, torch.Tensor):
@@ -327,7 +564,7 @@ class Trainer:
         generator = torch.Generator(device=state.generator.device)
         generator.set_state(state.generator.get_state())
         return dataclasses.replace(
-            state, params=params, opt_state=opt_state,
+            state, params=params, opt_state=opt_state, opt_params=views,
             model_state=clone(state.model_state), generator=generator)
 
     def step(self, state: TrainState, batch: dict
@@ -340,13 +577,16 @@ class Trainer:
             state = self._copy(state)
         loss, aux, model_state, grads = self._grads(state, self._batch(batch))
         if self.world > 1:
-            self._mean_over_ranks(list(grads.values()))
+            self._reduce_grads(grads)
             scalars = [loss, *aux.values()]
             self._mean_over_ranks(scalars)
             loss, aux = scalars[0], dict(zip(aux, scalars[1:]))
-        if self.tx.update(grads, state.opt_state, state.params) is not None:
+        if self.tx.update(self._update_grads(grads), state.opt_state,
+                          state.update_params) is not None:
             raise ValueError("the optimizer chain must end in an optimizer "
                              "that applies the update (e.g. adamw)")
+        if state.opt_params is not None:
+            self._gather_updates(state)
         if self.config.ema_decay:
             # Post-update EMA; owns model_state["ema"] (re-attached even
             # when a loss_fn rebuilds its model_state from scratch).
@@ -364,8 +604,8 @@ class Trainer:
                   ) -> dict[str, torch.Tensor]:
         with torch.no_grad():
             loss, (aux, _) = self.eval_loss_fn(
-                state.params, state.model_state, self._batch(batch),
-                state.generator)
+                self._loss_params(state.params), state.model_state,
+                self._batch(batch), state.generator)
         return {"loss": loss, **aux}
 
 
@@ -586,7 +826,7 @@ class TrainerObs:
 
 def llama_loss(cfg, params, batch, *, attention_fn=None,
                chunk_size: int | None = 512, z_loss: float = 0.0,
-               context_mesh=None, **model_kw):
+               context_mesh=None, tensor_mesh=None, **model_kw):
     """The Llama example's loss over ``params`` (the port's state dict) and
     ``batch``: with ``"segments"`` the packed loss over full logits, else
     with ``chunk_size`` the chunked CE, else the CE over full logits;
@@ -602,9 +842,12 @@ def llama_loss(cfg, params, batch, *, attention_fn=None,
     that axis, and the loss takes the next block's first token
     (:func:`tpucfn_torch.parallel.next_block_tokens`); the trainer's
     ``loss_weight`` is then
-    :func:`tpucfn_torch.models.llama.causal_lm_loss_weight`.  Returns
-    ``(loss, aux)``, aux ``{"accuracy": ...}`` and, for MoE,
-    ``"moe_dropped_frac"`` (the mean over layers)."""
+    :func:`tpucfn_torch.models.llama.causal_lm_loss_weight`.
+    ``tensor_mesh`` with a ``tensor`` axis of size > 1: ``params`` are
+    this rank's blocks by ``sharding_rules``, and the model and the
+    chunked CE run tensor parallel over that axis.  Returns ``(loss,
+    aux)``, aux ``{"accuracy": ...}`` and, for MoE, ``"moe_dropped_frac"``
+    (the mean over layers)."""
     from tpucfn_torch.data.packing import packed_causal_lm_loss
     from tpucfn_torch.models.llama import (Llama, causal_lm_loss,
                                            chunked_causal_lm_loss)
@@ -612,7 +855,8 @@ def llama_loss(cfg, params, batch, *, attention_fn=None,
                                                 next_block_tokens)
 
     model = Llama.from_state_dict(cfg, params, attention_fn=attention_fn,
-                                  trainable=True, **model_kw)
+                                  trainable=True, tensor_mesh=tensor_mesh,
+                                  **model_kw)
     tokens, segments = batch["tokens"], batch.get("segments")
     block, blocks = context_block(context_mesh)
     if blocks > 1 and (segments is not None or attention_fn is None):
@@ -631,7 +875,8 @@ def llama_loss(cfg, params, batch, *, attention_fn=None,
                                          return_hidden=True, return_aux=True)
         loss, acc = chunked_causal_lm_loss(
             hidden, params["lm_head.weight"], tokens,
-            chunk_size=chunk_size, z_loss=z_loss, next_tokens=next_tokens)
+            chunk_size=chunk_size, z_loss=z_loss, next_tokens=next_tokens,
+            tensor_mesh=tensor_mesh)
     else:
         logits, moe_aux, dropped = model(tokens, q_offset=q_offset,
                                          return_aux=True)
@@ -644,16 +889,17 @@ def llama_loss(cfg, params, batch, *, attention_fn=None,
 
 
 def llama_train_fns(cfg, *, attention_fn=None, chunk_size: int | None = 512,
-                    z_loss: float = 0.0, context_mesh=None,
+                    z_loss: float = 0.0, context_mesh=None, tensor_mesh=None,
                     **model_kw) -> tuple[InitFn, LossFn]:
     """(init_fn, loss_fn) for a Llama, as the JAX package's Llama example
     wires them.  ``cfg.param_dtype`` should be fp32 (master weights).
     ``attention_fn`` defaults to the flash kernels' Function (K1 forward,
     K2/K3 backward; the plain versions for CPU tensors), or, with a
     ``context_mesh`` whose context axis is > 1, to ring attention over it
-    with flash hops.  The loss is :func:`llama_loss` (``model_kw``: the
-    MoE routing scope, e.g. ``moe_route_group`` under data
-    parallelism)."""
+    with flash hops.  The loss is :func:`llama_loss` (``tensor_mesh``:
+    tensor parallelism; ``model_kw``: the MoE routing scope, e.g.
+    ``moe_route_group`` under data parallelism, ``moe_expert_group``
+    with experts split over the ``expert`` axis)."""
     from tpucfn_torch.kernels.flash_attention import flash_attention
     from tpucfn_torch.models.llama import init_llama_params
     from tpucfn_torch.parallel.sharding import context_block
@@ -673,7 +919,8 @@ def llama_train_fns(cfg, *, attention_fn=None, chunk_size: int | None = 512,
         del generator
         loss, aux = llama_loss(cfg, params, batch, attention_fn=attention_fn,
                                chunk_size=chunk_size, z_loss=z_loss,
-                               context_mesh=context_mesh, **model_kw)
+                               context_mesh=context_mesh,
+                               tensor_mesh=tensor_mesh, **model_kw)
         return loss, (aux, model_state)
 
     return init_fn, loss_fn
